@@ -1,0 +1,228 @@
+"""Renderer: row-band scheduling, band dispatch and finalize on one device.
+
+Port of ``raytracer_tpu/render/renderer.py`` for the megakernel path. The
+plan is the JAX package's, unchanged: one dispatch renders a whole row band
+at its full sample count (``num_samples = spp // 4`` per subpixel), band
+heights divide the image height, and progressive and serving plans are
+derived from the same lane budget (``cfg.rays_per_pass``).
+
+Each band runs the bounce megakernel (``ops.megakernel.render_band_mega``):
+the CUDA kernel for a scene on the GPU, its plain PyTorch twin for a scene
+on the CPU. The band's 32-bit seed is derived from ``(cfg.seed, y0, salt)``
+with the kernel's own counter hash, where the JAX package folds y0 and the
+salt into a ``jax.random`` key.
+
+Finalize reproduces the reference's per-subpixel clamp-then-average and
+gamma pipeline (src/server.rs:360-368) in numpy (``finalize``) and on the
+device (``finalize_device``, ``finalize_device_dyn``).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.models.scene import SceneArrays, needs_bvh
+from raytracer_tpu_torch.ops.megakernel import band_seed, render_band_mega, supports_megakernel
+from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+
+def select_band_engine(scene: SceneArrays, cfg: RenderConfig) -> str:
+    """The engine that renders ``scene`` under ``cfg``: always ``"mega"``.
+
+    The JAX package falls back to its streaming engine ("regen") for BVH
+    meshes, Phong, mesh lights and MIS, and on the CPU backend; the port
+    has only the megakernel yet (with its plain twin for CPU tensors), so
+    everything outside the megakernel's subset raises.
+    """
+    if cfg.engine != "mega":
+        raise NotImplementedError(
+            f"engine {cfg.engine!r} is not ported yet (ROADMAP.md queue 1); "
+            "raytracer_tpu_torch renders with engine='mega'"
+        )
+    if scene.use_bvh:
+        raise needs_bvh(f"scene {scene.name!r}")
+    if not supports_megakernel(scene, cfg):
+        raise NotImplementedError(
+            f"scene {scene.name!r} with use_mis={cfg.use_mis} needs the streaming "
+            "engine (MIS, Phong, mesh lights or >32 triangles), which is "
+            "ROADMAP.md queue 1, slice two"
+        )
+    return "mega"
+
+
+def finalize_device(sums: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """Device-side finalize: sums [..., 4, 3] -> u8 RGB [..., 3] (see finalize)."""
+    return finalize_device_dyn(sums, num_samples)
+
+
+def finalize_device_dyn(sums: torch.Tensor, num_samples) -> torch.Tensor:
+    """``finalize`` on the sums' device, with the sample count an int or a
+    0-dim tensor (the progressive path finalizes after every chunk with a
+    growing divisor)."""
+    ns = torch.as_tensor(num_samples, device=sums.device).to(torch.float32)
+    mean = sums / torch.clamp_min(ns, 1.0)
+    c = torch.clamp(mean, 0.0, 1.0)
+    # Subpixels summed in order, as numpy's add.reduce does over 4 entries.
+    pixel = (c[..., 0, :] + c[..., 1, :] + c[..., 2, :] + c[..., 3, :]) * 0.25
+    v = torch.clamp(pixel, 0.0, 1.0) ** (1.0 / 2.2) * 255.0 + 0.5
+    return torch.clamp(torch.floor(v), 0, 255).to(torch.uint8)
+
+
+def finalize(sums: np.ndarray, num_samples: int) -> np.ndarray:
+    """Per-subpixel sums [..., 4, 3] -> u8 RGB [..., 3].
+
+    Reference pipeline: mean over samples, clamp to [0,1] per subpixel,
+    x0.25 sum over subpixels (src/server.rs:360), then gamma:
+    clamp, ^(1/2.2), *255 + 0.5, truncate (src/server.rs:366-368).
+    """
+    mean = sums / float(max(num_samples, 1))
+    pixel = np.clip(mean, 0.0, 1.0).sum(axis=-2) * 0.25
+    v = np.clip(pixel, 0.0, 1.0) ** (1.0 / 2.2) * 255.0 + 0.5
+    return np.clip(np.floor(v), 0, 255).astype(np.uint8)
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+def _divisor_band(height: int, target: int) -> int:
+    """Largest divisor of height that is <= target (>=1)."""
+    target = max(1, min(target, height))
+    for r in range(target, 0, -1):
+        if height % r == 0:
+            return r
+    return 1
+
+
+def make_renderer(
+    scene: SceneArrays, cfg: RenderConfig, device: str | torch.device = DEFAULT_DEVICE
+) -> "Renderer":
+    """The renderer the server and the tools use: one device (multi-GPU
+    bands are still to port, ROADMAP.md queue 1)."""
+    return Renderer(scene, cfg, device=device)
+
+
+class Renderer:
+    """Per-scene render pipeline with row-band scheduling on one device."""
+
+    K_MAX = 16  # max samples/subpixel per dispatch chunk
+    # Per-frame dispatch cap: large frames scale the band up instead of
+    # multiplying dispatches.
+    MAX_BANDS = 9
+
+    def __init__(
+        self,
+        scene: SceneArrays,
+        cfg: RenderConfig | None = None,
+        device: str | torch.device = DEFAULT_DEVICE,
+    ):
+        self.device = resolve_device(device)
+        self.scene = scene.to(self.device)
+        self.cfg = cfg or RenderConfig()
+        self.engine = select_band_engine(self.scene, self.cfg)
+        self.ray_counts: list[torch.Tensor] = []
+
+    # --- scheduling -------------------------------------------------------
+
+    def plan(self, spp: int) -> tuple[int, int, int]:
+        """(band_rows, k, n_passes): a band renders k*n_passes samples per
+        subpixel, num_samples = spp//4 (the reference's integer split,
+        src/server.rs:332), k a power of two <= K_MAX."""
+        num_samples = spp // 4
+        if num_samples >= 2**24:
+            raise ValueError(f"spp {spp} exceeds the 2^24 samples/subpixel cap")
+        if num_samples <= 0:
+            return self._band_rows(), 1, 0
+        k = min(self.K_MAX, _pow2_floor(num_samples))
+        n_passes = -(-num_samples // k)
+        return self._band_rows(), k, n_passes
+
+    def _band_rows(self) -> int:
+        cfg = self.cfg
+        # One lane per (pixel, subpixel) whatever the sample count: the
+        # megakernel streams a lane's samples.
+        lanes_per_row = cfg.width * 4
+        target = max(1, cfg.rays_per_pass // lanes_per_row)
+        target = max(target, -(-cfg.height // self.MAX_BANDS))
+        return _divisor_band(cfg.height, target)
+
+    def plan_delivery(self, spp: int) -> tuple[int, int, int]:
+        """(band_rows, k, n_passes) for serving non-progressive renders. The
+        JAX package cuts mesh (BVH) scenes into smaller bands here; for the
+        megakernel's scenes it is ``plan``."""
+        return self.plan(spp)
+
+    def plan_progressive(self, spp: int) -> tuple[int, int, int]:
+        """(band_rows, k, n_chunks) for progressive refinement: chunks are
+        sized so a full render always delivers several refinements."""
+        num_samples = spp // 4
+        if num_samples <= 0:
+            return self._band_rows(), 1, 0
+        k = min(self.K_MAX, _pow2_floor(max(1, num_samples // 4)))
+        n_chunks = -(-num_samples // k)
+        return self._band_rows(), k, n_chunks
+
+    def iter_bands(self, spp: int, rows: int | None = None) -> Iterator[tuple[int, int]]:
+        if rows is None:
+            rows, _, _ = self.plan(spp)
+        for y in range(0, self.cfg.height, rows):
+            yield y, rows
+
+    # --- rendering --------------------------------------------------------
+
+    def samples_rendered(self, spp: int) -> int:
+        _, k, n_passes = self.plan(spp)
+        return k * n_passes
+
+    def render_band_sums(
+        self, y0: int, rows: int, k: int, n_passes: int, salt: int = 0,
+        return_rays: bool = False,
+    ):
+        """Device sums [rows, W, 4, 3] for the band starting at render row y0,
+        at k*n_passes samples per subpixel.
+
+        The band's ray count (a device scalar) is appended to
+        ``self.ray_counts``, unless ``return_rays=True``, which returns
+        ``(sums, rays)`` instead and leaves ``ray_counts`` alone: callers
+        that share one renderer (the server's warm-up thread and client
+        renders) must use that form.
+        """
+        sums, rays = render_band_mega(
+            self.scene, self.cfg, y0, rows, k * n_passes,
+            band_seed(self.cfg.seed, y0, salt),
+        )
+        if return_rays:
+            return sums, rays
+        self.ray_counts.append(rays)
+        return sums
+
+    def rays_traced(self) -> int:
+        """Total rays traced by this renderer so far (syncs the device)."""
+        return int(sum(int(r) for r in self.ray_counts))
+
+    def render_rows(self, y0: int, spp: int) -> tuple[np.ndarray, int]:
+        """u8 RGB for one band -> ([rows, W, 3], rows); spp<4 renders black."""
+        rows, k, n_passes = self.plan(spp)
+        if n_passes == 0:
+            return np.zeros((rows, self.cfg.width, 3), np.uint8), rows
+        sums = self.render_band_sums(y0, rows, k, n_passes)
+        return finalize_device(sums, k * n_passes).cpu().numpy(), rows
+
+    def render_image(self, spp: int, cancelled=None) -> np.ndarray | None:
+        """Full image -> u8 [H, W, 3] with row 0 at the TOP (client space:
+        the reference samples row height-y-1 under label y, src/server.rs:181).
+        Returns None when ``cancelled()`` turns true between bands."""
+        cfg = self.cfg
+        img = np.zeros((cfg.height, cfg.width, 3), np.uint8)
+        for y0, rows in self.iter_bands(spp):
+            if cancelled is not None and cancelled():
+                return None
+            rgb, _ = self.render_rows(y0, spp)
+            # Render rows [y0, y0+rows) land flipped at label rows [H-y0-rows, H-y0).
+            valid = min(rows, cfg.height - y0)
+            img[cfg.height - y0 - valid : cfg.height - y0] = rgb[:valid][::-1]
+        return img

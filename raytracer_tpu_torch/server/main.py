@@ -1,0 +1,98 @@
+"""CLI entry point: ``python -m raytracer_tpu_torch.server.main <scenes-dir>``.
+
+Mirrors ``raytracer_tpu/server/main.py`` (the reference bootstrap,
+src/main.rs:16-55): eagerly load the scenes from the given directory, read
+PORT from the environment (default 8080), serve forever. The default scene
+list is what the port renders: cornell_box and cubes. flying_unicorn needs
+a BVH and fails to load with the slice-two error. ``--device`` defaults to
+``cuda`` and there is no silent CPU fallback.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import os
+import sys
+
+from raytracer_tpu.config import port_from_env
+from raytracer_tpu_torch.models.loader import SCENE_NAMES, load_all_scenes
+from raytracer_tpu_torch.server.app import HEIGHT, WIDTH, Server
+from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(prog="raytracer-tpu-torch-server")
+    parser.add_argument("scenes_dir", help="directory containing <scene>.toml")
+    parser.add_argument("--port", type=int, default=None, help="overrides PORT env")
+    parser.add_argument("--width", type=int, default=WIDTH)
+    parser.add_argument("--height", type=int, default=HEIGHT)
+    parser.add_argument("--scenes", nargs="*", default=None, help="scene names to load")
+    parser.add_argument("--config", default=None, help="render config TOML (see config.toml)")
+    parser.add_argument("--device", default=DEFAULT_DEVICE, help="torch device (default cuda)")
+    parser.add_argument(
+        "--http-port",
+        type=int,
+        default=None,
+        help="also serve the web viewer (clients/web) over plain HTTP",
+    )
+    parser.add_argument(
+        "--no-warmup",
+        action="store_true",
+        help="skip the startup build and first band of every scene",
+    )
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    cfg = None
+    if args.config:
+        from raytracer_tpu.config import config_from_toml
+
+        cfg = config_from_toml(args.config)
+
+    names = args.scenes or SCENE_NAMES
+    try:
+        scenes = load_all_scenes(args.scenes_dir, names=names, device=args.device)
+    except Exception as e:  # the reference exits(1) on any scene load failure
+        print(f"Failed to load scenes from {args.scenes_dir}: {e}", file=sys.stderr)
+        return 1
+
+    server = Server(scenes, cfg=cfg, width=args.width, height=args.height, device=args.device)
+    if not args.no_warmup:
+        server.warmup()  # background; the first client skips the kernel build
+    port = args.port if args.port is not None else port_from_env()
+
+    async def run_all():
+        tasks = [server.serve_forever(port=port)]
+        if args.http_port:
+            tasks.append(_serve_viewer(args.http_port))
+        await asyncio.gather(*tasks)
+
+    asyncio.run(run_all())
+    return 0
+
+
+async def _serve_viewer(port: int) -> None:
+    """Serve the static web viewer (clients/web/index.html)."""
+    from aiohttp import web
+
+    root = os.path.join(os.path.dirname(__file__), "..", "..", "clients", "web")
+
+    async def index(_req):
+        return web.FileResponse(os.path.join(root, "index.html"))
+
+    app = web.Application()
+    app.router.add_get("/", index)
+    app.router.add_static("/", root)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "0.0.0.0", port)
+    await site.start()
+    logging.getLogger("raytracer_tpu_torch.server").info("Viewer at http://0.0.0.0:%d/", port)
+    await asyncio.Event().wait()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

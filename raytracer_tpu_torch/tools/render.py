@@ -1,0 +1,54 @@
+"""Offline render CLI: scene TOML -> PNG, on one device.
+
+    python -m raytracer_tpu_torch.tools.render scenes/cornell_box.toml \\
+        --spp 64 --out cornell.png [--width 600 --height 450] [--device cuda]
+
+Port of ``raytracer_tpu/tools/render.py``. The PNG is written by the
+standard library's zlib (``utils/png.py``), so no imaging package is needed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="raytracer-tpu-torch-render")
+    parser.add_argument("scene", help="path to a scene .toml")
+    parser.add_argument("--spp", type=int, default=64)
+    parser.add_argument("--out", default=None, help="output PNG (default <scene>.png)")
+    parser.add_argument("--width", type=int, default=600)
+    parser.add_argument("--height", type=int, default=450)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--max-depth", type=int, default=None)
+    parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    args = parser.parse_args(argv)
+
+    from raytracer_tpu.config import RenderConfig
+    from raytracer_tpu.utils.timing import RenderStats
+    from raytracer_tpu_torch.models.loader import load_scene
+    from raytracer_tpu_torch.render.renderer import make_renderer
+    from raytracer_tpu_torch.utils.png import write_png
+
+    kwargs = dict(width=args.width, height=args.height, seed=args.seed)
+    if args.max_depth is not None:
+        kwargs["max_depth"] = args.max_depth
+    cfg = RenderConfig(**kwargs)
+
+    stats = RenderStats(pixels=args.width * args.height, samples=args.spp)
+    with stats.phase("load"):
+        scene = load_scene(args.scene, device=args.device)
+    renderer = make_renderer(scene, cfg, device=args.device)
+    with stats.phase("render"):
+        img = renderer.render_image(args.spp)
+    stats.rays = renderer.rays_traced()
+
+    out = args.out or (args.scene.rsplit(".", 1)[0] + ".png")
+    write_png(out, img)
+    print(f"wrote {out}  {stats.summary()}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

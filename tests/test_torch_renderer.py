@@ -1,0 +1,67 @@
+"""The port's slice as a whole: ``Renderer.render_image`` on the CPU (the
+megakernel's twin) against the JAX ``Renderer`` at the same small size.
+
+The JAX package renders with its streaming engine on the CPU backend (the
+megakernel needs a TPU) and draws other random numbers, so the images agree
+statistically: same shape and orientation, means within 3 levels at 16 spp.
+"""
+
+import os
+
+import jax  # noqa: F401  (tests/conftest.py keeps jax on the CPU)
+import numpy as np
+import pytest
+
+from raytracer_tpu.config import RenderConfig
+from raytracer_tpu.models.loader import load_scene as jax_load_scene
+from raytracer_tpu.render.renderer import Renderer as JaxRenderer
+from raytracer_tpu_torch.models.loader import load_scene
+from raytracer_tpu_torch.render.renderer import Renderer, select_band_engine
+
+SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
+W, H, SPP = 32, 24, 16
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cubes"])
+def test_render_image_matches_jax(name):
+    path = os.path.join(SCENES, f"{name}.toml")
+    cfg = RenderConfig(width=W, height=H)
+    ref = JaxRenderer(jax_load_scene(path), cfg).render_image(SPP)
+    r = Renderer(load_scene(path, device="cpu"), cfg, device="cpu")
+    assert r.engine == "mega"
+    img = r.render_image(SPP)
+    assert img.shape == ref.shape == (H, W, 3) and img.dtype == np.uint8
+    assert abs(img.mean() - ref.mean()) < 3.0
+    # Orientation: row 0 is the top (the ceiling light); row profiles agree.
+    rows_p, rows_j = img.mean(axis=(1, 2)), ref.mean(axis=(1, 2))
+    assert np.corrcoef(rows_p, rows_j)[0, 1] > 0.8
+    assert np.corrcoef(rows_p, rows_j[::-1])[0, 1] < np.corrcoef(rows_p, rows_j)[0, 1]
+    assert r.rays_traced() > W * H * SPP
+    again = Renderer(load_scene(path, device="cpu"), cfg, device="cpu").render_image(SPP)
+    np.testing.assert_array_equal(again, img)
+
+
+def test_spp_below_four_renders_black():
+    r = Renderer(load_scene(os.path.join(SCENES, "cornell_box.toml"), device="cpu"),
+                 RenderConfig(width=W, height=H), device="cpu")
+    assert not r.render_image(2).any()
+
+
+def test_engine_gate_raises_outside_the_slice():
+    scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device="cpu")
+    assert select_band_engine(scene, RenderConfig()) == "mega"
+    with pytest.raises(NotImplementedError, match="slice two"):
+        select_band_engine(scene, RenderConfig(use_mis=True))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        select_band_engine(scene, RenderConfig(engine="regen"))
+
+
+def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_scene(os.path.join(SCENES, "cornell_box.toml"))
+    scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Renderer(scene, RenderConfig(width=W, height=H))
