@@ -3,8 +3,8 @@
 ``scene_from_numpy`` takes the fields of a JAX ``SceneArrays`` as numpy
 arrays (``{name: np.asarray(field)}``) and its static metadata, and builds
 the port's ``SceneArrays`` from them, so that both packages compute on the
-very same scene. Fields the port does not keep (the BVH and its packings)
-are ignored.
+very same scene. The leaf-triangle table the port keeps is unpacked from
+JAX's ``bvh_tris_packed`` tiles; the other TPU packings are ignored.
 """
 
 from __future__ import annotations
@@ -15,13 +15,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.models.scene import (
-    META_FIELDS,
-    TENSOR_FIELDS,
-    SceneArrays,
-    needs_bvh,
-)
+from raytracer_tpu_torch.models.scene import META_FIELDS, TENSOR_FIELDS, SceneArrays
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+
+def leaf_tris_from_packed(packed: np.ndarray, n_rows: int) -> np.ndarray:
+    """JAX's ``bvh_tris_packed`` [TR, 12*MAX_LEAF, 128] -> [n_rows, 12]
+    (triangle k of leaf group g sits at fields 12k..12k+11 of lane g%128)."""
+    tr, fields, lanes = packed.shape
+    return packed.transpose(0, 2, 1).reshape(tr * lanes * (fields // 12), 12)[:n_rows]
 
 
 def scene_from_numpy(
@@ -30,10 +32,12 @@ def scene_from_numpy(
     device: str | torch.device = DEFAULT_DEVICE,
 ) -> SceneArrays:
     """Port ``SceneArrays`` on ``device`` from JAX scene fields as numpy."""
-    if meta.get("use_bvh"):
-        raise needs_bvh(f"scene {meta.get('name', '')!r}")
     dev = resolve_device(device)
+    host = dict(d)
+    if "bvh_leaf_tris" not in host:
+        n_rows = meta["n_triangles"] - meta["bvh_tri_start"] if meta["use_bvh"] else 0
+        host["bvh_leaf_tris"] = leaf_tris_from_packed(np.asarray(d["bvh_tris_packed"]), n_rows)
     tensors = {
-        k: torch.from_numpy(np.array(d[k], copy=True)).to(dev) for k in TENSOR_FIELDS
+        k: torch.from_numpy(np.array(host[k], copy=True)).to(dev) for k in TENSOR_FIELDS
     }
     return SceneArrays(**tensors, **{k: meta[k] for k in META_FIELDS})

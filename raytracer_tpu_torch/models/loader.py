@@ -7,8 +7,12 @@ same transform semantics: meshes rotate and scale about their bounding-box
 centre, sphere rotation and plane scale are no-ops, plane rotation turns
 only the normal. Host math is f64; tensors are f32.
 
-``cube`` and ``prism`` expand to triangles through ``raytracer_tpu.models.obj``.
-``mesh`` geometry needs a BVH and raises ``NotImplementedError`` (slice two).
+``cube`` and ``prism`` expand to triangles through ``raytracer_tpu.models.obj``
+and are brute-forced; ``mesh`` geometry loads an OBJ from
+``<scenes_dir>/assets/`` and goes behind one BVH over all mesh triangles
+(``ops/bvh.py``). The triangle batch is the brute-forced prefix, then the
+mesh triangles in the BVH's leaf order with degenerate pads, as in the JAX
+loader.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from raytracer_tpu.config import SCENE_NAMES
 from raytracer_tpu.models import obj as objlib
 from raytracer_tpu_torch.models.scene import (
     BRDF_DIFFUSE,
@@ -28,13 +33,9 @@ from raytracer_tpu_torch.models.scene import (
     BRDF_SPECULAR,
     SceneArrays,
     build_scene_arrays,
-    needs_bvh,
 )
+from raytracer_tpu_torch.ops.bvh import build_bvh
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE
-
-# The scenes this slice renders: the reference's defaults (SCENE_NAMES in
-# raytracer_tpu/config.py) without flying_unicorn, which needs a BVH.
-SCENE_NAMES = ("cornell_box", "cubes")
 
 
 class SceneLoadError(ValueError):
@@ -107,14 +108,18 @@ def _parse_brdf(spec: dict) -> dict[str, Any]:
 
 
 def load_scene_dict(
-    doc: dict, name: str = "", device: str | torch.device = DEFAULT_DEVICE
+    doc: dict, name: str = "", scenes_dir: str | None = None,
+    device: str | torch.device = DEFAULT_DEVICE,
 ) -> SceneArrays:
-    """Build SceneArrays on ``device`` from a parsed TOML document."""
+    """Build SceneArrays on ``device`` from a parsed TOML document; mesh
+    paths resolve under ``<scenes_dir>/assets/``."""
     cam = doc["camera"]
     camera_pos = np.asarray(cam["pos"], np.float64)
     camera_dir = np.asarray(cam["dir"], np.float64)
 
-    spheres, planes, triangles, materials = [], [], [], []
+    spheres, planes, materials = [], [], []
+    brute_tris: list[dict] = []  # cube/prism triangles, brute-forced
+    mesh_tris: list[dict] = []  # loaded meshes, behind the BVH
     for i, ospec in enumerate(doc.get("objects", [])):
         mat = _parse_brdf(ospec["brdf"])
         mat["emitted"] = ospec.get("emitted", [0.0, 0.0, 0.0])
@@ -146,21 +151,37 @@ def load_scene_dict(
                     n = _ROT[kind](n, float(val))
                 # scale is a no-op for planes (src/geometry.rs:508)
             planes.append(dict(pos=pos, n=n, obj=i))
-        elif gtype in ("cube", "prism"):
+        elif gtype in ("cube", "prism", "mesh"):
             if gtype == "cube":
                 verts, idx = objlib.cube(np.asarray(gspec["pos"], np.float64), float(gspec["size"]))
-            else:
+            elif gtype == "prism":
                 s = gspec["size"]
                 verts, idx = objlib.prism(
                     np.asarray(gspec["pos"], np.float64), float(s[0]), float(s[1]), float(s[2])
                 )
+            else:
+                if scenes_dir is None:
+                    raise SceneLoadError("mesh geometry requires scenes_dir")
+                verts, _normals, idx = objlib.load_obj(
+                    os.path.join(scenes_dir, "assets", gspec["path"])
+                )
             tris = _apply_transforms_mesh(verts, transforms)[idx]  # [F,3,3]
+            dest = mesh_tris if gtype == "mesh" else brute_tris
             for f in range(tris.shape[0]):
-                triangles.append(dict(a=tris[f, 0], b=tris[f, 1], c=tris[f, 2], obj=i))
-        elif gtype == "mesh":
-            raise needs_bvh(f"scene {name!r}: mesh geometry {gspec.get('path')!r}")
+                dest.append(dict(a=tris[f, 0], b=tris[f, 1], c=tris[f, 2], obj=i))
         else:
             raise SceneLoadError(f"unknown geometry type {gtype!r}")
+
+    bvh = None
+    bvh_tri_start = len(brute_tris)
+    triangles = brute_tris + mesh_tris
+    if mesh_tris:
+        tri_pts = np.stack(
+            [np.stack([t[k] for t in mesh_tris]) for k in ("a", "b", "c")], axis=1
+        )  # [F,3,3]
+        bvh, order = build_bvh(tri_pts)
+        degenerate = dict(a=np.zeros(3), b=np.zeros(3), c=np.zeros(3), obj=0, valid=False)
+        triangles = brute_tris + [mesh_tris[j] if j >= 0 else degenerate for j in order]
 
     return build_scene_arrays(
         name=name,
@@ -170,16 +191,23 @@ def load_scene_dict(
         planes=planes,
         triangles=triangles,
         materials=materials,
+        bvh=bvh,
+        bvh_tri_start=bvh_tri_start,
         device=device,
     )
 
 
-def load_scene(path: str, device: str | torch.device = DEFAULT_DEVICE) -> SceneArrays:
-    """Load a ``.toml`` scene file onto ``device``."""
+def load_scene(
+    path: str, device: str | torch.device = DEFAULT_DEVICE, scenes_dir: str | None = None
+) -> SceneArrays:
+    """Load a ``.toml`` scene file onto ``device``; mesh paths resolve under
+    ``<scenes_dir>/assets/`` (default: the file's own directory)."""
+    if scenes_dir is None:
+        scenes_dir = os.path.dirname(os.path.abspath(path))
     with open(path, "rb") as fh:
         doc = tomllib.load(fh)
     name = os.path.splitext(os.path.basename(path))[0]
-    return load_scene_dict(doc, name=name, device=device)
+    return load_scene_dict(doc, name=name, scenes_dir=scenes_dir, device=device)
 
 
 def load_all_scenes(
@@ -188,6 +216,6 @@ def load_all_scenes(
     """Eagerly load the named scenes (default: ``SCENE_NAMES``)."""
     names = names or SCENE_NAMES
     return {
-        name: load_scene(os.path.join(scenes_dir, f"{name}.toml"), device)
+        name: load_scene(os.path.join(scenes_dir, f"{name}.toml"), device, scenes_dir)
         for name in names
     }

@@ -5,9 +5,14 @@ multiple of PAD with validity masks, and the first emissive object is the
 light, exactly as in the reference package, so every kept field equals the
 JAX ``SceneArrays`` field of the same name.
 
-Not ported in this slice: the BVH arrays and their TPU packings (a scene
-that needs a BVH raises ``NotImplementedError``), and the dummy buffers the
-JAX package adds to dodge an XLA shard_map bug.
+Mesh scenes carry the BVH of ``ops/bvh.py``: the binary tree and its
+treetop cut (equal to the JAX fields of the same names), the 8-wide node
+table ``bvh8_nodes_flat`` (equal to JAX's) and the leaf-triangle table
+``bvh_leaf_tris`` that the Hopper kernel reads (the rows of JAX's
+``bvh_tris_packed``). Scenes without a BVH hold the JAX package's one-row
+zero placeholders in the shared fields and an empty leaf table. The TPU
+tile packings (``bvh_nodes_packed``, ``bvh8_nodes_packed``,
+``bvh_tris_packed``, ``bvh_tris_mxu``) are not kept.
 """
 
 from __future__ import annotations
@@ -30,14 +35,6 @@ LIGHT_MESH = 1
 PAD = 8  # pad primitive batches to a multiple of this
 
 
-def needs_bvh(what: str) -> NotImplementedError:
-    """The error for anything that needs a BVH, which this port lacks."""
-    return NotImplementedError(
-        f"{what} needs a BVH, which raytracer_tpu_torch does not have yet "
-        "(ROADMAP.md queue 1, slice two: BVH host build, kernels K2 and K3)"
-    )
-
-
 def _pad(a: np.ndarray, n: int, fill: float = 0.0) -> np.ndarray:
     if a.shape[0] == n:
         return a
@@ -58,10 +55,12 @@ TENSOR_FIELDS = (
     "obj_emitted", "brdf_type", "c_d", "c_s", "k_d", "k_s", "phong_power",
     "light_sph_pos", "light_sph_r", "light_tri_idx", "light_tri_cdf", "light_area",
     "cam_pos", "cam_dir",
+    "bvh_lo", "bvh_hi", "bvh_skip", "bvh_first", "bvh_count",
+    "bvh_cut_lo", "bvh_cut_hi", "bvh8_nodes_flat", "bvh_leaf_tris",
 )
 META_FIELDS = (
     "name", "light_idx", "light_type", "n_objects", "n_spheres", "n_planes",
-    "n_triangles", "has_phong", "use_bvh",
+    "n_triangles", "has_phong", "use_bvh", "bvh_tri_start", "bvh8_max_stack",
 )
 
 
@@ -101,6 +100,16 @@ class SceneArrays:
     light_area: torch.Tensor  # []
     cam_pos: torch.Tensor  # [3]
     cam_dir: torch.Tensor  # [3]
+    # BVH over the mesh triangles [bvh_tri_start, n_triangles) (ops/bvh.py)
+    bvh_lo: torch.Tensor  # [Nn,3] node AABB min
+    bvh_hi: torch.Tensor  # [Nn,3] node AABB max
+    bvh_skip: torch.Tensor  # [Nn] i32 first node past the subtree
+    bvh_first: torch.Tensor  # [Nn] i32 first triangle of a leaf
+    bvh_count: torch.Tensor  # [Nn] i32 leaf triangle count (0 internal)
+    bvh_cut_lo: torch.Tensor  # [C,3] treetop-cut boxes (coherence key)
+    bvh_cut_hi: torch.Tensor  # [C,3]
+    bvh8_nodes_flat: torch.Tensor  # [Nw,64] f32 wide nodes (K2)
+    bvh_leaf_tris: torch.Tensor  # [F',12] f32 leaf triangle rows (K2)
 
     name: str = ""
     light_idx: int = 0
@@ -110,7 +119,12 @@ class SceneArrays:
     n_planes: int = 0
     n_triangles: int = 0
     has_phong: bool = True
-    use_bvh: bool = False  # always False until the BVH is ported
+    use_bvh: bool = False
+    # Triangles below this index (cube/prism objects) are brute-forced.
+    bvh_tri_start: int = 0
+    # Stack depth the 8-wide traversal needs (pops 1 / pushes <= 7 net per
+    # visit along one root-to-leaf path).
+    bvh8_max_stack: int = 1
 
     @property
     def device(self) -> torch.device:
@@ -134,13 +148,17 @@ def build_scene_arrays(
     planes: list[dict[str, Any]],
     triangles: list[dict[str, Any]],
     materials: list[dict[str, Any]],
+    bvh: Any | None = None,
+    bvh_tri_start: int = 0,
     device: str | torch.device = DEFAULT_DEVICE,
 ) -> SceneArrays:
     """Assemble padded tensors on ``device`` from host-side lists.
 
     ``spheres``: [{pos, r, obj}], ``planes``: [{pos, n, obj}],
     ``triangles``: [{a, b, c, obj}], ``materials``: per-object dicts with
-    keys emitted, brdf_type, c_d, c_s, k_d, k_s, power.
+    keys emitted, brdf_type, c_d, c_s, k_d, k_s, power. ``bvh`` is
+    ``ops.bvh.build_bvh``'s tree over ``triangles[bvh_tri_start:]``, which
+    must already be in its leaf order (with degenerate pads).
     """
     dev = resolve_device(device)
     f = np.float32
@@ -226,7 +244,9 @@ def build_scene_arrays(
         light_area=np.asarray(larea),
         cam_pos=np.asarray(camera_pos, f),
         cam_dir=np.asarray(camera_dir, f),
+        **_bvh_fields(bvh, triangles[bvh_tri_start:]),
     )
+    max_stack = host.pop("max_stack")
     return SceneArrays(
         **{k: torch.as_tensor(v).to(dev) for k, v in host.items()},
         name=name,
@@ -237,5 +257,41 @@ def build_scene_arrays(
         n_planes=np_,
         n_triangles=nt,
         has_phong=bool((brdf_type == BRDF_PHONG).any()),
-        use_bvh=False,
+        use_bvh=bvh is not None,
+        bvh_tri_start=bvh_tri_start,
+        bvh8_max_stack=int(max_stack),
+    )
+
+
+def _bvh_fields(bvh, tail: list[dict[str, Any]]) -> dict[str, Any]:
+    """The BVH fields (and ``max_stack``) for the tree over ``tail``."""
+    from raytracer_tpu_torch.ops.bvh import (
+        collapse_bvh8,
+        pack_bvh8_nodes,
+        pack_leaf_tris,
+        treetop_cut,
+    )
+
+    if bvh is None:
+        z3 = np.zeros((1, 3), np.float32)
+        zi = np.zeros((1,), np.int32)
+        return dict(
+            bvh_lo=z3, bvh_hi=z3, bvh_skip=zi, bvh_first=zi, bvh_count=zi,
+            bvh_cut_lo=z3, bvh_cut_hi=z3,
+            bvh8_nodes_flat=np.zeros((1, 64), np.float32),
+            bvh_leaf_tris=np.zeros((0, 12), np.float32),
+            max_stack=1,
+        )
+    lo, hi, skip, first, count = bvh
+    cut = treetop_cut(bvh)
+    tri_pts = np.stack(
+        [np.stack([t[k] for t in tail]) for k in ("a", "b", "c")], axis=1
+    ).astype(np.float64)
+    w_lo, w_hi, w_child, w_count, max_stack = collapse_bvh8(bvh)
+    return dict(
+        bvh_lo=lo, bvh_hi=hi, bvh_skip=skip, bvh_first=first, bvh_count=count,
+        bvh_cut_lo=lo[cut], bvh_cut_hi=hi[cut],
+        bvh8_nodes_flat=pack_bvh8_nodes(w_lo, w_hi, w_child, w_count),
+        bvh_leaf_tris=pack_leaf_tris(tri_pts),
+        max_stack=max_stack,
     )

@@ -4,7 +4,8 @@ Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
 ``build/raytracer_tpu_torch/lib<name>-<hash>.so`` under the repository
 root, at first use. The hash covers the source and the flags, so an edited
-source is rebuilt. The library is loaded with ``ctypes``.
+source is rebuilt. The library is loaded with ``ctypes``. ``build`` holds
+one lock per source, so callers may build several sources at once.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and FMA contraction off
 (``-fmad=false``) so that the kernels round after every operation exactly
@@ -31,7 +32,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+
+
+def _lock(name: str) -> threading.Lock:
+    """One lock per source, so different sources build at the same time."""
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def nvcc_path() -> str:
@@ -60,7 +68,7 @@ def build(name: str) -> tuple[str, str]:
     ``RuntimeError`` with the compiler's output when nvcc fails.
     """
     path = library_path(name)
-    with _lock:
+    with _lock(name):
         if os.path.exists(path):
             return path, ""
         os.makedirs(BUILD_DIR, exist_ok=True)

@@ -1,16 +1,22 @@
 """Renderer: row-band scheduling, band dispatch and finalize on one device.
 
-Port of ``raytracer_tpu/render/renderer.py`` for the megakernel path. The
-plan is the JAX package's, unchanged: one dispatch renders a whole row band
-at its full sample count (``num_samples = spp // 4`` per subpixel), band
-heights divide the image height, and progressive and serving plans are
-derived from the same lane budget (``cfg.rays_per_pass``).
+Port of ``raytracer_tpu/render/renderer.py``. The plans are the JAX
+package's, unchanged: band heights divide the image height, and
+progressive and serving plans are derived from the same lane budgets. A
+megakernel scene renders a whole row band at its full sample count
+(``num_samples = spp // 4`` per subpixel) in one dispatch; a BVH scene
+takes bands of ``cfg.mesh_rays_per_pass`` lanes, one dispatch per sample,
+summed on the device, and serves in at least ``DELIVERY_BANDS`` bands.
 
-Each band runs the bounce megakernel (``ops.megakernel.render_band_mega``):
-the CUDA kernel for a scene on the GPU, its plain PyTorch twin for a scene
-on the CPU. The band's 32-bit seed is derived from ``(cfg.seed, y0, salt)``
-with the kernel's own counter hash, where the JAX package folds y0 and the
-salt into a ``jax.random`` key.
+Two engines (``select_band_engine``): the bounce megakernel
+(``ops.megakernel.render_band_mega``, K1) and the streaming regen engine
+(``render.wavefront.render_band_regen``, with K2 and K3 on BVH scenes). A
+scene on the GPU runs the CUDA kernels, a scene on the CPU their plain
+PyTorch twins. The megakernel's 32-bit band seed is derived from
+``(cfg.seed, y0, salt)`` with the kernel's counter hash (the JAX package
+folds y0 and the salt into a ``jax.random`` key); the regen engine keys its
+draws on the frame slot, so its seed is derived from ``(cfg.seed, salt)``
+and a pixel's samples do not depend on the band that holds it.
 
 Finalize reproduces the reference's per-subpixel clamp-then-average and
 gamma pipeline (src/server.rs:360-368) in numpy (``finalize``) and on the
@@ -25,33 +31,31 @@ import numpy as np
 import torch
 
 from raytracer_tpu.config import RenderConfig
-from raytracer_tpu_torch.models.scene import SceneArrays, needs_bvh
+from raytracer_tpu_torch.models.scene import LIGHT_SPHERE, SceneArrays
+from raytracer_tpu_torch.ops.intersect import scene_precompute
 from raytracer_tpu_torch.ops.megakernel import band_seed, render_band_mega, supports_megakernel
+from raytracer_tpu_torch.render.wavefront import render_band_regen
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def select_band_engine(scene: SceneArrays, cfg: RenderConfig) -> str:
-    """The engine that renders ``scene`` under ``cfg``: always ``"mega"``.
-
-    The JAX package falls back to its streaming engine ("regen") for BVH
-    meshes, Phong, mesh lights and MIS, and on the CPU backend; the port
-    has only the megakernel yet (with its plain twin for CPU tensors), so
-    everything outside the megakernel's subset raises.
-    """
-    if cfg.engine != "mega":
+    """The engine that renders ``scene`` under ``cfg``: ``"mega"`` for the
+    megakernel's subset (``cfg.engine`` "mega", the default), else
+    ``"regen"``. Both cover NEE with diffuse and mirror materials and a
+    sphere light; MIS, Phong and mesh lights raise (slice three), and so do
+    the engines not ported ("simple", "fused")."""
+    if cfg.engine not in ("mega", "regen"):
         raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported yet (ROADMAP.md queue 1); "
-            "raytracer_tpu_torch renders with engine='mega'"
+            f"engine {cfg.engine!r} is not ported (raytracer_tpu_torch has 'mega' and 'regen')"
         )
-    if scene.use_bvh:
-        raise needs_bvh(f"scene {scene.name!r}")
-    if not supports_megakernel(scene, cfg):
+    if cfg.use_mis or scene.has_phong or scene.light_type != LIGHT_SPHERE:
         raise NotImplementedError(
-            f"scene {scene.name!r} with use_mis={cfg.use_mis} needs the streaming "
-            "engine (MIS, Phong, mesh lights or >32 triangles), which is "
-            "ROADMAP.md queue 1, slice two"
+            f"scene {scene.name!r} with use_mis={cfg.use_mis} needs MIS, Phong or a mesh "
+            "light, which are ROADMAP.md queue 1 item 6 (slice three)"
         )
-    return "mega"
+    if cfg.engine == "mega" and supports_megakernel(scene, cfg):
+        return "mega"
+    return "regen"
 
 
 def finalize_device(sums: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -113,6 +117,9 @@ class Renderer:
     # Per-frame dispatch cap: large frames scale the band up instead of
     # multiplying dispatches.
     MAX_BANDS = 9
+    # Minimum deliveries per served BVH frame, so a client sees pixels
+    # before the whole frame is done.
+    DELIVERY_BANDS = 4
 
     def __init__(
         self,
@@ -124,6 +131,7 @@ class Renderer:
         self.scene = scene.to(self.device)
         self.cfg = cfg or RenderConfig()
         self.engine = select_band_engine(self.scene, self.cfg)
+        self.pre = scene_precompute(self.scene) if self.engine == "regen" else None
         self.ray_counts: list[torch.Tensor] = []
 
     # --- scheduling -------------------------------------------------------
@@ -137,24 +145,32 @@ class Renderer:
             raise ValueError(f"spp {spp} exceeds the 2^24 samples/subpixel cap")
         if num_samples <= 0:
             return self._band_rows(), 1, 0
+        if self.scene.use_bvh:
+            # One sample per dispatch over bands of the mesh lane budget.
+            return self._band_rows(self.cfg.mesh_rays_per_pass), 1, num_samples
         k = min(self.K_MAX, _pow2_floor(num_samples))
         n_passes = -(-num_samples // k)
         return self._band_rows(), k, n_passes
 
-    def _band_rows(self) -> int:
+    def _band_rows(self, budget: int | None = None) -> int:
         cfg = self.cfg
-        # One lane per (pixel, subpixel) whatever the sample count: the
-        # megakernel streams a lane's samples.
+        # One lane per (pixel, subpixel) whatever the sample count: both
+        # engines stream a lane's samples.
         lanes_per_row = cfg.width * 4
-        target = max(1, cfg.rays_per_pass // lanes_per_row)
+        target = max(1, (budget or cfg.rays_per_pass) // lanes_per_row)
         target = max(target, -(-cfg.height // self.MAX_BANDS))
         return _divisor_band(cfg.height, target)
 
     def plan_delivery(self, spp: int) -> tuple[int, int, int]:
-        """(band_rows, k, n_passes) for serving non-progressive renders. The
-        JAX package cuts mesh (BVH) scenes into smaller bands here; for the
-        megakernel's scenes it is ``plan``."""
-        return self.plan(spp)
+        """(band_rows, k, n_passes) for serving non-progressive renders:
+        ``plan``, except that a BVH scene's band is cut so the frame streams
+        in at least ``DELIVERY_BANDS`` pieces."""
+        rows, k, n_passes = self.plan(spp)
+        if self.scene.use_bvh and n_passes > 0 and rows > 1:
+            target = max(1, -(-self.cfg.height // self.DELIVERY_BANDS))
+            if target < rows:
+                rows = _divisor_band(self.cfg.height, target)
+        return rows, k, n_passes
 
     def plan_progressive(self, spp: int) -> tuple[int, int, int]:
         """(band_rows, k, n_chunks) for progressive refinement: chunks are
@@ -191,10 +207,16 @@ class Renderer:
         that share one renderer (the server's warm-up thread and client
         renders) must use that form.
         """
-        sums, rays = render_band_mega(
-            self.scene, self.cfg, y0, rows, k * n_passes,
-            band_seed(self.cfg.seed, y0, salt),
-        )
+        if self.engine == "mega":
+            sums, rays = render_band_mega(
+                self.scene, self.cfg, y0, rows, k * n_passes,
+                band_seed(self.cfg.seed, y0, salt),
+            )
+        else:
+            sums, rays = render_band_regen(
+                self.scene, self.pre, self.cfg, y0, rows, k * n_passes,
+                band_seed(self.cfg.seed, 0, salt),
+            )
         if return_rays:
             return sums, rays
         self.ray_counts.append(rays)
@@ -209,7 +231,14 @@ class Renderer:
         rows, k, n_passes = self.plan(spp)
         if n_passes == 0:
             return np.zeros((rows, self.cfg.width, 3), np.uint8), rows
-        sums = self.render_band_sums(y0, rows, k, n_passes)
+        if self.scene.use_bvh:
+            # One dispatch per sample, summed on the device.
+            sums = None
+            for p in range(n_passes):
+                out = self.render_band_sums(y0, rows, k, 1, salt=p)
+                sums = out if sums is None else sums + out
+        else:
+            sums = self.render_band_sums(y0, rows, k, n_passes)
         return finalize_device(sums, k * n_passes).cpu().numpy(), rows
 
     def render_image(self, spp: int, cancelled=None) -> np.ndarray | None:

@@ -214,8 +214,9 @@ class RenderJob:
         else:
             # Each pixel streamed exactly once, band by band, as its band
             # completes all samples.
+            # BVH scenes: one dispatch per sample, as render_rows does.
             rows_b, k, n_passes = renderer.plan_delivery(spp)
-            g = self.PASSES_PER_DISPATCH
+            g = 1 if renderer.scene.use_bvh else self.PASSES_PER_DISPATCH
             for y0, rows in renderer.iter_bands(spp, rows_b):
                 if cancelled():
                     break

@@ -3,9 +3,9 @@
 Mirrors ``raytracer_tpu/server/main.py`` (the reference bootstrap,
 src/main.rs:16-55): eagerly load the scenes from the given directory, read
 PORT from the environment (default 8080), serve forever. The default scene
-list is what the port renders: cornell_box and cubes. flying_unicorn needs
-a BVH and fails to load with the slice-two error. ``--device`` defaults to
-``cuda`` and there is no silent CPU fallback.
+list is the reference's, ``raytracer_tpu.config.SCENE_NAMES``: cornell_box,
+cubes and flying_unicorn. ``--device`` defaults to ``cuda`` and there is no
+silent CPU fallback.
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ import logging
 import os
 import sys
 
-from raytracer_tpu.config import port_from_env
-from raytracer_tpu_torch.models.loader import SCENE_NAMES, load_all_scenes
+from raytracer_tpu.config import SCENE_NAMES, port_from_env
+from raytracer_tpu_torch.models.loader import load_all_scenes
 from raytracer_tpu_torch.server.app import HEIGHT, WIDTH, Server
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE
 

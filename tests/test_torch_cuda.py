@@ -53,3 +53,65 @@ def test_renderer_defaults_to_the_kernel(cuda):
     img = r.render_image(8)
     assert mk.LAUNCHES > before
     assert img.shape == (48, 64, 3) and img.mean() > 20
+
+
+def _unicorn_rays(scene, n, seed, dev):
+    """Camera rays through the unicorn's box, random rays inside it, parked."""
+    g = torch.Generator().manual_seed(seed)
+    lo, hi = scene.bvh_lo[0].cpu(), scene.bvh_hi[0].cpu()
+    inside = lo + (hi - lo) * torch.rand((n, 3), generator=g)
+    cam = scene.cam_pos.cpu().expand(n // 2, 3)
+    ro = torch.cat([cam, inside[n // 2:]])
+    d = torch.cat([inside[: n // 2] - cam, torch.randn((n - n // 2, 3), generator=g)])
+    rd = d / d.norm(dim=1, keepdim=True)
+    ro[-n // 16:] = 3.0e7
+    rd[-n // 16:] = torch.tensor([1.0, 0.0, 0.0])
+    return tuple(ro.to(dev).unbind(1)), tuple(rd.to(dev).unbind(1))
+
+
+@pytest.mark.cuda
+def test_key_kernel_is_bit_equal_to_twin_on_gpu(cuda):
+    from raytracer_tpu_torch.ops import keys
+
+    scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    ro, rd = _unicorn_rays(scene, 1 << 16, 1, cuda)
+    before = keys.LAUNCHES
+    k = keys.coherence_key_cuda(scene, ro, rd, RenderConfig().eps)
+    assert keys.LAUNCHES == before + 1
+    assert torch.equal(k, keys.coherence_key_twin(scene, ro, rd, RenderConfig().eps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traversal_kernel_matches_twin_on_gpu(cuda, any_hit):
+    from raytracer_tpu_torch.ops import bvh_traverse as bt
+
+    eps = RenderConfig().eps
+    scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    n = 1 << 15
+    ro, rd = _unicorn_rays(scene, n, 2, cuda)
+    g = torch.Generator().manual_seed(3)
+    t_init = torch.where(torch.rand(n, generator=g) < 0.5, bt.INF, 10 + 200 * torch.rand(n, generator=g)).to(cuda)
+    resolved = (torch.rand(n, generator=g) < 0.1).to(cuda)
+    before = bt.LAUNCHES
+    t_k, i_k = bt.bvh_traverse_cuda(scene, ro, rd, t_init, resolved, any_hit, eps)
+    assert bt.LAUNCHES == before + 1
+    t_t, i_t = bt.bvh_traverse_twin(scene, ro, rd, t_init, resolved, any_hit, eps)
+    torch.cuda.synchronize()
+    assert (t_k == t_t).double().mean().item() >= bt.T_EXACT_SHARE
+    diff = i_k != i_t
+    assert torch.equal(bt.leaf_t(scene, ro, rd, i_k)[diff], bt.leaf_t(scene, ro, rd, i_t)[diff])
+    assert (t_k < t_init).sum() > n // 20
+
+
+@pytest.mark.cuda
+def test_unicorn_renders_through_k2_and_k3(cuda):
+    from raytracer_tpu_torch.ops import bvh_traverse, keys
+
+    scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    r = Renderer(scene, RenderConfig(width=64, height=48))
+    assert r.engine == "regen"
+    k0, b0 = keys.LAUNCHES, bvh_traverse.LAUNCHES
+    img = r.render_image(8)
+    assert keys.LAUNCHES > k0 and bvh_traverse.LAUNCHES > b0
+    assert img.shape == (48, 64, 3) and img.mean() > 20

@@ -9,6 +9,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = (
     "raytracer_tpu_torch",
     "raytracer_tpu_torch.ops.megakernel",
+    "raytracer_tpu_torch.ops.bvh",
+    "raytracer_tpu_torch.ops.keys",
+    "raytracer_tpu_torch.ops.bvh_traverse",
+    "raytracer_tpu_torch.ops.intersect",
+    "raytracer_tpu_torch.ops.brdf",
+    "raytracer_tpu_torch.render.integrator",
+    "raytracer_tpu_torch.render.wavefront",
     "raytracer_tpu_torch.render.renderer",
     "raytracer_tpu_torch.server.app",
     "raytracer_tpu_torch.server.main",

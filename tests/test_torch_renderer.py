@@ -50,10 +50,38 @@ def test_spp_below_four_renders_black():
 def test_engine_gate_raises_outside_the_slice():
     scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device="cpu")
     assert select_band_engine(scene, RenderConfig()) == "mega"
-    with pytest.raises(NotImplementedError, match="slice two"):
+    assert select_band_engine(scene, RenderConfig(engine="regen")) == "regen"
+    with pytest.raises(NotImplementedError, match="slice three"):
         select_band_engine(scene, RenderConfig(use_mis=True))
     with pytest.raises(NotImplementedError, match="not ported"):
-        select_band_engine(scene, RenderConfig(engine="regen"))
+        select_band_engine(scene, RenderConfig(engine="simple"))
+
+
+@pytest.fixture(scope="module")
+def unicorns():
+    path = os.path.join(SCENES, "flying_unicorn.toml")
+    return jax_load_scene(path), load_scene(path, device="cpu")
+
+
+@pytest.mark.parametrize("cfg", [
+    RenderConfig(),
+    RenderConfig(width=32, height=24, mesh_rays_per_pass=1 << 13),
+    RenderConfig(width=1920, height=1080),
+    RenderConfig(width=90, height=12),
+], ids=["600x450", "32x24", "1080p", "90x12"])
+def test_unicorn_plans_equal_jax(unicorns, cfg):
+    ref, port = unicorns
+    jr = JaxRenderer(ref, cfg)
+    r = Renderer(port, cfg, device="cpu")
+    assert r.engine == "regen"
+    for spp in (0, 2, 4, 16, 64, 100, 1024):
+        assert r.plan(spp) == jr.plan(spp), spp
+        assert r.plan_delivery(spp) == jr.plan_delivery(spp), spp
+        assert r.plan_progressive(spp) == jr.plan_progressive(spp), spp
+    if cfg == RenderConfig():
+        # One band is the whole frame: 1,080,000 lanes, one sample a dispatch;
+        # served, the frame streams in 5 bands of 90 rows.
+        assert r.plan(16) == (450, 1, 4) and r.plan_delivery(16) == (90, 1, 4)
 
 
 def test_cuda_is_the_default_and_never_falls_back(monkeypatch):

@@ -1,5 +1,6 @@
 """The port's scene loader and parameter carry-over against the JAX package:
-every kept field equal, exactly, for the scenes of the port's first slice."""
+every kept field equal, exactly, for the default scenes and crewmate_phong
+(its mesh loads; rendering Phong is slice three)."""
 
 import os
 
@@ -7,29 +8,46 @@ import numpy as np
 import pytest
 import torch
 
+from raytracer_tpu.config import RenderConfig
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops.intersect import tri_precompute as jax_tri_precompute
 from raytracer_tpu_torch.models.convert import scene_from_numpy
-from raytracer_tpu_torch.models.loader import load_scene
+from raytracer_tpu_torch.models.loader import SCENE_NAMES, load_all_scenes, load_scene
 from raytracer_tpu_torch.models.scene import META_FIELDS, TENSOR_FIELDS
 from raytracer_tpu_torch.ops.intersect import tri_precompute
+from raytracer_tpu_torch.render.renderer import select_band_engine
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 
 
-@pytest.fixture(scope="module", params=["cornell_box", "cubes"])
+@pytest.fixture(
+    scope="module", params=["cornell_box", "cubes", "flying_unicorn", "crewmate_phong"]
+)
 def pair(request):
     path = os.path.join(SCENES, f"{request.param}.toml")
     return jax_load_scene(path), load_scene(path, device="cpu")
 
 
+@pytest.fixture(scope="module", params=["cornell_box", "cubes"])
+def flat_pair(request):
+    path = os.path.join(SCENES, f"{request.param}.toml")
+    return jax_load_scene(path), load_scene(path, device="cpu")
+
+
 def _jax_fields(scene):
-    return {k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS}
+    """The JAX scene's fields as numpy, for the port's fields it has (the
+    leaf-triangle table is carried over from its ``bvh_tris_packed``)."""
+    d = {k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS if hasattr(scene, k)}
+    d["bvh_tris_packed"] = np.asarray(scene.bvh_tris_packed)
+    return d
 
 
 def test_fields_equal_jax(pair):
     ref, port = pair
-    for k, want in _jax_fields(ref).items():
+    for k in TENSOR_FIELDS:
+        if not hasattr(ref, k):
+            continue
+        want = np.asarray(getattr(ref, k))
         got = getattr(port, k).numpy()
         assert got.dtype == want.dtype, k
         assert got.shape == want.shape, k
@@ -48,8 +66,8 @@ def test_scene_from_numpy_equals_loader(pair):
         assert getattr(conv, k) == getattr(port, k), k
 
 
-def test_tri_precompute_matches_jax(pair):
-    ref, port = pair
+def test_tri_precompute_matches_jax(flat_pair):
+    ref, port = flat_pair
     want = jax_tri_precompute(ref.tri_a, ref.tri_b, ref.tri_c)
     got = tri_precompute(port.tri_a, port.tri_b, port.tri_c)
     for name in want._fields:
@@ -60,5 +78,26 @@ def test_tri_precompute_matches_jax(pair):
 
 
 def test_mesh_scene_raises_slice_two():
-    with pytest.raises(NotImplementedError, match="slice two"):
-        load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device="cpu")
+    """Slice two made mesh scenes load (behind a BVH) and render through the
+    regen engine; what still raises is Phong, slice three."""
+    unicorn = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device="cpu")
+    assert unicorn.use_bvh and select_band_engine(unicorn, RenderConfig()) == "regen"
+    crewmate = load_scene(os.path.join(SCENES, "crewmate_phong.toml"), device="cpu")
+    assert crewmate.use_bvh and crewmate.has_phong
+    with pytest.raises(NotImplementedError, match="slice three"):
+        select_band_engine(crewmate, RenderConfig())
+
+
+def test_default_scenes_are_the_references():
+    assert SCENE_NAMES == ("cornell_box", "cubes", "flying_unicorn")
+    scenes = load_all_scenes(SCENES, device="cpu")
+    assert tuple(scenes) == SCENE_NAMES and scenes["flying_unicorn"].use_bvh
+
+
+def test_mesh_paths_resolve_under_scenes_dir(tmp_path):
+    doc = open(os.path.join(SCENES, "flying_unicorn.toml")).read()
+    (tmp_path / "u.toml").write_text(doc)
+    with pytest.raises(FileNotFoundError):
+        load_scene(str(tmp_path / "u.toml"), device="cpu")
+    s = load_scene(str(tmp_path / "u.toml"), device="cpu", scenes_dir=SCENES)
+    assert s.n_triangles == 44288

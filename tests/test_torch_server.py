@@ -1,6 +1,7 @@
 """The port's WebSocket server end to end on localhost, rendering on the CPU
-(the megakernel's twin), held against the JAX server for the same requests;
-plus the port's two command-line entry points."""
+(the kernels' twins), held against the JAX server for the same requests;
+a served flying_unicorn frame; plus the port's two command-line entry
+points."""
 
 import asyncio
 import json
@@ -137,7 +138,7 @@ def test_unknown_scene_closes_connection(port_server):
 
     async def go():
         async with websockets.connect(f"ws://127.0.0.1:{port_server}") as ws:
-            await ws.send(json.dumps({"type": "render", "scene": "flying_unicorn", "spp": 4}))
+            await ws.send(json.dumps({"type": "render", "scene": "no_such_scene", "spp": 4}))
             with pytest.raises(websockets.exceptions.ConnectionClosed):
                 while True:
                     await asyncio.wait_for(ws.recv(), 10)
@@ -145,11 +146,23 @@ def test_unknown_scene_closes_connection(port_server):
     asyncio.run(go())
 
 
-def test_server_main_fails_on_a_bvh_scene(capsys):
+def test_server_main_fails_on_a_bvh_scene(capsys, tmp_path):
+    """A mesh scene whose OBJ is missing fails the start-up load (exit 1)."""
     from raytracer_tpu_torch.server.main import main
 
-    assert main([SCENES, "--scenes", "flying_unicorn", "--device", "cpu"]) == 1
-    assert "slice two" in capsys.readouterr().err
+    doc = open(os.path.join(SCENES, "flying_unicorn.toml")).read()
+    (tmp_path / "flying_unicorn.toml").write_text(doc)
+    assert main([str(tmp_path), "--scenes", "flying_unicorn", "--device", "cpu"]) == 1
+    assert "flying-unicorn.obj" in capsys.readouterr().err
+
+
+def test_served_unicorn_covers_every_pixel_once(port_server):
+    # A 60x12 frame: one 60-pixel chunk a row, delivered in 4 bands of 3
+    # rows (plan_delivery), each pixel exactly once.
+    msg = {"type": "render", "scene": "flying_unicorn", "spp": 4, "width": 60, "height": 12}
+    headers, img = asyncio.run(_frame(port_server, msg, w=60, h=12))
+    assert sorted(headers) == sorted((0, y, 60) for y in range(12))
+    assert (img >= 0).all() and img.mean() > 20
 
 
 def test_render_cli_writes_png(tmp_path):

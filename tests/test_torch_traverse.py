@@ -1,0 +1,176 @@
+"""The 8-wide traversal's plain PyTorch twin (K2) against the JAX package's
+``bvh_intersect`` (its XLA packet traversal on the CPU), on a random
+triangle soup and on flying_unicorn rays, nearest and any-hit.
+
+Tolerances are those of tests/test_pallas_bvh.py:83-85: hit masks equal,
+t within rtol 3e-4 / atol 1e-4, triangle indices equal on hits. (The XLA
+traversal tests Moller-Trumbore on the f32 vertices, the twin the
+f64-precomputed gradient rows, so t differs in the last bits.)"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracer_tpu.config import Epsilons
+from raytracer_tpu.models.loader import load_scene as jax_load_scene
+from raytracer_tpu.ops.bvh import bvh_intersect as jax_bvh_intersect
+from raytracer_tpu_torch.models.loader import load_scene
+from raytracer_tpu_torch.models.scene import build_scene_arrays
+from raytracer_tpu_torch.ops import bvh
+from raytracer_tpu_torch.ops import bvh_traverse as bt
+from tests.test_bvh import _scene_with_mesh_bvh, random_tri_soup
+
+SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
+EPS = Epsilons()
+
+
+def _port_soup_scene(tris):
+    tree, order = bvh.build_bvh(tris)
+    tris = np.where(order[:, None, None] >= 0, tris[np.maximum(order, 0)], 0.0)
+    triangles = [
+        dict(a=t[0], b=t[1], c=t[2], obj=0, valid=bool(o >= 0)) for t, o in zip(tris, order)
+    ]
+    mats = [
+        dict(emitted=[0, 0, 0], brdf_type=0, c_d=[1, 1, 1], c_s=[0, 0, 0], k_d=1, k_s=0, power=0),
+        dict(emitted=[1, 1, 1], brdf_type=0, c_d=[0, 0, 0], c_s=[0, 0, 0], k_d=1, k_s=0, power=0),
+    ]
+    spheres = [dict(pos=[0, 0, 100], r=1.0, obj=1)]
+    return build_scene_arrays(
+        "bvhtest", np.zeros(3), np.array([0, 0, -1.0]), spheres, [], triangles, mats,
+        bvh=tree, bvh_tri_start=0, device="cpu",
+    )
+
+
+@pytest.fixture(scope="module")
+def soup():
+    tris = random_tri_soup(1500, seed=6)
+    return _scene_with_mesh_bvh(tris), _port_soup_scene(tris)
+
+
+@pytest.fixture(scope="module")
+def unicorn():
+    path = os.path.join(SCENES, "flying_unicorn.toml")
+    return jax_load_scene(path), load_scene(path, device="cpu")
+
+
+def _random_rays(n, seed, lo=-12.0, hi=12.0):
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    return ro, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _unicorn_rays(port, n, seed):
+    """Half camera rays (from the scene's camera through the unicorn's box),
+    half random rays from inside the box."""
+    rng = np.random.default_rng(seed)
+    lo, hi = port.bvh_lo[0].numpy(), port.bvh_hi[0].numpy()
+    cam = port.cam_pos.numpy()
+    target = rng.uniform(lo, hi, (n // 2, 3))
+    d1 = target - cam
+    ro = np.concatenate([np.tile(cam, (n // 2, 1)), rng.uniform(lo, hi, (n - n // 2, 3))])
+    d = np.concatenate([d1, rng.normal(size=(n - n // 2, 3))])
+    return ro.astype(np.float32), (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _both(pair, ro, rd, **kw):
+    ref, port = pair
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    tj, ij = jax_bvh_intersect(ref, jnp.asarray(ro), jnp.asarray(rd), EPS, **jkw)
+    tp, ip = bt.bvh_intersect(port, torch.from_numpy(ro), torch.from_numpy(rd), EPS, **tkw)
+    return np.asarray(tj), np.asarray(ij), tp.numpy(), ip.numpy()
+
+
+def _assert_nearest_agrees(tj, ij, tp, ip):
+    hj, hp = tj < 1e30, tp < 1e30
+    np.testing.assert_array_equal(hj, hp)
+    np.testing.assert_allclose(tp[hp], tj[hj], rtol=3e-4, atol=1e-4)
+    np.testing.assert_array_equal(ip[hp], ij[hj])
+
+
+def test_nearest_matches_jax_on_a_soup(soup):
+    ro, rd = _random_rays(700, 7)
+    tj, ij, tp, ip = _both(soup, ro, rd)
+    assert 50 < (tp < 1e30).sum() < 650
+    _assert_nearest_agrees(tj, ij, tp, ip)
+
+
+def test_t_init_bounds_the_search_on_a_soup(soup):
+    ro, rd = _random_rays(700, 8)
+    bound = np.random.default_rng(9).uniform(1.0, 25.0, 700).astype(np.float32)
+    tj, ij, tp, ip = _both(soup, ro, rd, t_init=bound)
+    # Rays that find nothing below their bound keep it.
+    np.testing.assert_array_equal(tp >= bound, tj >= bound)
+    np.testing.assert_array_equal(tp[tp >= bound], bound[tp >= bound])
+    hit = tp < bound
+    assert hit.sum() > 20
+    np.testing.assert_allclose(tp[hit], tj[hit], rtol=3e-4, atol=1e-4)
+    np.testing.assert_array_equal(ip[hit], ij[hit])
+
+
+def test_any_hit_with_resolved0_on_a_soup(soup):
+    ro, rd = _random_rays(700, 10)
+    rng = np.random.default_rng(11)
+    bound = rng.uniform(1.0, 25.0, 700).astype(np.float32)
+    resolved = rng.random(700) < 0.3
+    tj, _, tp, _ = _both(soup, ro, rd, t_init=bound, any_hit=True, resolved0=resolved)
+    # any_hit may stop at ANY sub-bound hit: only occlusion agrees, and
+    # resolved lanes are don't-care.
+    np.testing.assert_array_equal((tp < bound)[~resolved], (tj < bound)[~resolved])
+    assert (tp < bound)[~resolved].sum() > 10
+    # An any-hit t is a real hit of the nearest search's bound.
+    _, _, tn, _ = _both(soup, ro, rd, t_init=bound)
+    assert (tp[~resolved] >= tn[~resolved]).all()
+
+
+def test_presorted_equals_sorted(soup):
+    _, port = soup
+    ro, rd = _random_rays(700, 12)
+    ro_t, rd_t = torch.from_numpy(ro), torch.from_numpy(rd)
+    t1, i1 = bt.bvh_intersect(port, ro_t, rd_t, EPS)
+    t2, i2 = bt.bvh_intersect(port, ro_t, rd_t, EPS, presorted=True)
+    assert torch.equal(t1, t2) and torch.equal(i1, i2)
+
+
+def test_nearest_matches_jax_on_unicorn(unicorn):
+    ro, rd = _unicorn_rays(unicorn[1], 2048, 13)
+    tj, ij, tp, ip = _both(unicorn, ro, rd)
+    assert (tp < 1e30).sum() > 600
+    _assert_nearest_agrees(tj, ij, tp, ip)
+
+
+def test_bounded_any_hit_matches_jax_on_unicorn(unicorn):
+    ro, rd = _unicorn_rays(unicorn[1], 1024, 14)
+    rng = np.random.default_rng(15)
+    bound = rng.uniform(1.0, 60.0, 1024).astype(np.float32)
+    resolved = rng.random(1024) < 0.2
+    tj, _, tp, _ = _both(unicorn, ro, rd, t_init=bound, any_hit=True, resolved0=resolved)
+    m = ~resolved
+    np.testing.assert_array_equal((tp < bound)[m], (tj < bound)[m])
+    assert (tp < bound)[m].sum() > 50
+
+
+def test_index_is_clipped_and_stack_checked(unicorn):
+    _, port = unicorn
+    ro, rd = _unicorn_rays(port, 256, 16)
+    _, idx = bt.bvh_intersect(port, torch.from_numpy(ro), torch.from_numpy(rd), EPS)
+    assert idx.min() >= 0 and idx.max() < port.tri_a.shape[0]
+    assert port.bvh8_max_stack <= bt.BVH8_MAX_STACK
+    import dataclasses
+
+    deep = dataclasses.replace(port, bvh8_max_stack=bt.BVH8_MAX_STACK + 1)
+    with pytest.raises(ValueError, match="stack"):
+        bt.bvh_traverse_twin(deep, torch.from_numpy(ro), torch.from_numpy(rd),
+                             torch.full((256,), bt.INF), torch.zeros(256, dtype=torch.bool), False, EPS)
+
+
+def test_cuda_wrapper_refuses_cpu_rays(unicorn):
+    _, port = unicorn
+    ro, rd = _unicorn_rays(port, 8, 17)
+    with pytest.raises(ValueError, match="CUDA device"):
+        bt.bvh_traverse_cuda(port, torch.from_numpy(ro), torch.from_numpy(rd),
+                             torch.full((8,), bt.INF), torch.zeros(8, dtype=torch.bool), False, EPS)
