@@ -4,7 +4,10 @@
 arrays (``{name: np.asarray(field)}``) and its static metadata, and builds
 the port's ``SceneArrays`` from them, so that both packages compute on the
 very same scene. The leaf-triangle table the port keeps is unpacked from
-JAX's ``bvh_tris_packed`` tiles; the other TPU packings are ignored.
+JAX's ``bvh_tris_packed`` tiles, and the binary node table is packed from
+the tree's five arrays (``ops.bvh.pack_binary_nodes``); the other TPU
+packings are ignored. The mesh-light fields (``light_tri_idx``,
+``light_tri_cdf``, ``light_area``) are carried as they are.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.models.scene import META_FIELDS, TENSOR_FIELDS, SceneArrays
+from raytracer_tpu_torch.ops.bvh import pack_binary_nodes
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -37,6 +41,11 @@ def scene_from_numpy(
     if "bvh_leaf_tris" not in host:
         n_rows = meta["n_triangles"] - meta["bvh_tri_start"] if meta["use_bvh"] else 0
         host["bvh_leaf_tris"] = leaf_tris_from_packed(np.asarray(d["bvh_tris_packed"]), n_rows)
+    if "bvh_binary_nodes" not in host:
+        tree = [np.asarray(d[k]) for k in ("bvh_lo", "bvh_hi", "bvh_skip", "bvh_first", "bvh_count")]
+        host["bvh_binary_nodes"] = (
+            pack_binary_nodes(tree) if meta["use_bvh"] else np.zeros((1, 12), np.float32)
+        )
     tensors = {
         k: torch.from_numpy(np.array(host[k], copy=True)).to(dev) for k in TENSOR_FIELDS
     }

@@ -7,11 +7,12 @@ JAX ``SceneArrays`` field of the same name.
 
 Mesh scenes carry the BVH of ``ops/bvh.py``: the binary tree and its
 treetop cut (equal to the JAX fields of the same names), the 8-wide node
-table ``bvh8_nodes_flat`` (equal to JAX's) and the leaf-triangle table
-``bvh_leaf_tris`` that the Hopper kernel reads (the rows of JAX's
-``bvh_tris_packed``). Scenes without a BVH hold the JAX package's one-row
-zero placeholders in the shared fields and an empty leaf table. The TPU
-tile packings (``bvh_nodes_packed``, ``bvh8_nodes_packed``,
+table ``bvh8_nodes_flat`` (equal to JAX's), the binary node table
+``bvh_binary_nodes`` (the rows of JAX's ``bvh_nodes_packed``) and the
+leaf-triangle table ``bvh_leaf_tris`` that the Hopper kernels read (the
+rows of JAX's ``bvh_tris_packed``). Scenes without a BVH hold the JAX
+package's one-row zero placeholders in the shared fields and an empty leaf
+table. The TPU tile packings (``bvh_nodes_packed``, ``bvh8_nodes_packed``,
 ``bvh_tris_packed``, ``bvh_tris_mxu``) are not kept.
 """
 
@@ -56,7 +57,7 @@ TENSOR_FIELDS = (
     "light_sph_pos", "light_sph_r", "light_tri_idx", "light_tri_cdf", "light_area",
     "cam_pos", "cam_dir",
     "bvh_lo", "bvh_hi", "bvh_skip", "bvh_first", "bvh_count",
-    "bvh_cut_lo", "bvh_cut_hi", "bvh8_nodes_flat", "bvh_leaf_tris",
+    "bvh_cut_lo", "bvh_cut_hi", "bvh8_nodes_flat", "bvh_binary_nodes", "bvh_leaf_tris",
 )
 META_FIELDS = (
     "name", "light_idx", "light_type", "n_objects", "n_spheres", "n_planes",
@@ -109,7 +110,8 @@ class SceneArrays:
     bvh_cut_lo: torch.Tensor  # [C,3] treetop-cut boxes (coherence key)
     bvh_cut_hi: torch.Tensor  # [C,3]
     bvh8_nodes_flat: torch.Tensor  # [Nw,64] f32 wide nodes (K2)
-    bvh_leaf_tris: torch.Tensor  # [F',12] f32 leaf triangle rows (K2)
+    bvh_binary_nodes: torch.Tensor  # [Nn,12] f32 binary nodes (K4)
+    bvh_leaf_tris: torch.Tensor  # [F',12] f32 leaf triangle rows (K2, K4)
 
     name: str = ""
     light_idx: int = 0
@@ -267,6 +269,7 @@ def _bvh_fields(bvh, tail: list[dict[str, Any]]) -> dict[str, Any]:
     """The BVH fields (and ``max_stack``) for the tree over ``tail``."""
     from raytracer_tpu_torch.ops.bvh import (
         collapse_bvh8,
+        pack_binary_nodes,
         pack_bvh8_nodes,
         pack_leaf_tris,
         treetop_cut,
@@ -279,6 +282,7 @@ def _bvh_fields(bvh, tail: list[dict[str, Any]]) -> dict[str, Any]:
             bvh_lo=z3, bvh_hi=z3, bvh_skip=zi, bvh_first=zi, bvh_count=zi,
             bvh_cut_lo=z3, bvh_cut_hi=z3,
             bvh8_nodes_flat=np.zeros((1, 64), np.float32),
+            bvh_binary_nodes=np.zeros((1, 12), np.float32),
             bvh_leaf_tris=np.zeros((0, 12), np.float32),
             max_stack=1,
         )
@@ -292,6 +296,7 @@ def _bvh_fields(bvh, tail: list[dict[str, Any]]) -> dict[str, Any]:
         bvh_lo=lo, bvh_hi=hi, bvh_skip=skip, bvh_first=first, bvh_count=count,
         bvh_cut_lo=lo[cut], bvh_cut_hi=hi[cut],
         bvh8_nodes_flat=pack_bvh8_nodes(w_lo, w_hi, w_child, w_count),
+        bvh_binary_nodes=pack_binary_nodes(bvh),
         bvh_leaf_tris=pack_leaf_tris(tri_pts),
         max_stack=max_stack,
     )

@@ -1,5 +1,5 @@
 """BVH host build: binned-SAH binary tree, 8-wide collapse, treetop cut,
-and the two tables the Hopper traversal kernel reads.
+and the tables the Hopper traversal kernels read.
 
 The build functions are numpy copies of ``raytracer_tpu/ops/bvh.py``
 (that module imports jax): ``build_bvh`` :69, ``collapse_bvh8`` :343 and
@@ -7,12 +7,15 @@ The build functions are numpy copies of ``raytracer_tpu/ops/bvh.py``
 the JAX package's node for node.
 
 The TPU packings (``pack_for_pallas`` :222, ``pack_bvh8_for_pallas`` :433)
-lay the tree out in [.., 128]-lane VMEM tiles. The Hopper kernel
-(``ops/csrc/bvh8.cu``) reads plain rows instead:
+lay the tree out in [.., 128]-lane VMEM tiles. The Hopper kernels
+(``ops/csrc/bvh8.cu``, ``ops/csrc/bvh_binary.cu``) read plain rows instead:
 
 - ``pack_bvh8_nodes``: one [64] f32 row per wide node, child slot s at
   fields 8s..8s+7 = (lo.xyz, hi.xyz, child, count): the JAX package's
   ``bvh8_nodes_flat``;
+- ``pack_binary_nodes``: one [12] f32 row per binary node, three float4s
+  (lo.xyz, skip), (hi.xyz, count), (first, 0, 0, 0): the fields that JAX's
+  ``pack_for_pallas`` puts in the lanes of ``bvh_nodes_packed``;
 - ``pack_leaf_tris``: one [12] f32 row per triangle of the leaf-ordered,
   leaf-padded layout, (n_unit.xyz, n_d, q1.xyz, q1_a, q2.xyz, q2_a),
   computed in f64 from the f64 vertices and rounded once: the rows of the
@@ -267,6 +270,27 @@ def pack_bvh8_nodes(w_lo, w_hi, w_child, w_count) -> np.ndarray:
         flat[:, 8 * s + 6] = w_child[:, s].astype(np.float32)
         flat[:, 8 * s + 7] = w_count[:, s].astype(np.float32)
     return flat
+
+
+def pack_binary_nodes(bvh) -> np.ndarray:
+    """[Nn, 12] f32 node table of the binary tree for the skip-link walk
+    (ints exact in f32 below 2^24). Raises on a table the walk could not
+    finish: a skip link must point past its node and at most one past the
+    last node."""
+    lo, hi, skip, first, count = bvh
+    n = lo.shape[0]
+    ids = np.arange(n)
+    if ((skip <= ids) | (skip > n)).any():
+        raise ValueError("BVH skip links must point past their node, at most to the end")
+    if (np.abs(np.stack([skip, first, count])) >= 2**24).any():
+        raise ValueError("BVH node field exceeds the f32-exact integer range")
+    rows = np.zeros((n, 12), np.float32)
+    rows[:, 0:3] = lo
+    rows[:, 3] = skip
+    rows[:, 4:7] = hi
+    rows[:, 7] = count
+    rows[:, 8] = first
+    return rows
 
 
 def pack_leaf_tris(tri_pts_ordered: np.ndarray) -> np.ndarray:

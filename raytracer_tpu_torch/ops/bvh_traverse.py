@@ -1,19 +1,23 @@
-"""Nearest (or any) triangle hit over the 8-wide BVH (K2).
+"""Nearest (or any) triangle hit over the 8-wide BVH (K2), and the BVH
+traversal's variant dispatch and wrapper.
 
 Port of ``raytracer_tpu/ops/pallas/bvh_kernel.py::_traverse8_kernel`` (K2)
-and of its wrapper ``bvh_intersect_pallas`` :551-776. Three parts, as for
-K1 and K3:
+and of its wrapper ``bvh_intersect_pallas`` :551-776. Four parts:
 
 - the plain PyTorch twin ``bvh_traverse_twin``: every ray walks its own
   stack, all rays step in lockstep (one pop each per step), with the same
   expressions, child order and tie rules as the kernel;
 - the CUDA kernel (``ops/csrc/bvh8.cu``), one thread per ray, built at
   first use and counted in ``LAUNCHES``;
+- ``bvh_traverse``, the dispatch: ``RT_BVH_KERNEL`` (read at each call,
+  as ``bvh_kernel.py:589`` reads it) selects K2 for the wide variants
+  ``wide``, ``widemxu`` and ``widesmem`` (the default; the three are TPU
+  layouts of one function) and K4 (``ops/bvh_binary.py``) for any other
+  value. CPU rays run the twin, CUDA rays the kernel, with no fallback;
 - ``bvh_intersect``, the wrapper with the JAX contract: unless
   ``presorted``, it sorts the rays by the coherence key (K3), traverses,
   and unsorts; a ray that finds no triangle below its ``t_init`` keeps
-  ``t_init``; the index is clipped to [0, T-1]. CPU rays run the twin, CUDA
-  rays the kernel, with no fallback.
+  ``t_init``; the index is clipped to [0, T-1].
 
 Not ported: the env-gated variants ``RT_SHADOW_COMPACT``, ``RT_BVH_VSORT``
 and ``RT_SORT_GROUP`` (negative results on the TPU).
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import threading
 
 import torch
@@ -31,16 +36,20 @@ from raytracer_tpu.config import Epsilons
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
 from raytracer_tpu_torch.ops.bvh import MAX_LEAF
+from raytracer_tpu_torch.ops.bvh_binary import bvh_binary_cuda, bvh_binary_twin
 from raytracer_tpu_torch.ops.keys import coherence_order
 
 INF = 3.0e38
 
+# RT_BVH_KERNEL values that run K2; any other value runs K4.
+WIDE_VARIANTS = ("wide", "widemxu", "widesmem")
+
 # Stack bound compiled into the kernel (BVH8_MAX_STACK in ops/csrc/bvh8.cu).
 BVH8_MAX_STACK = 64
 
-# Kernel against twin on the card: t bit-equal on at least this share of
-# rays, and where the indices differ, the two triangles' t equal (a tie
-# that the two walks broke in another order). Both evaluate the same f32
+# Kernel against twin on the card (K2 and K4): t bit-equal on at least this
+# share of rays, and where the indices differ, the two triangles' t equal (a
+# tie that the two walks broke in another order). Both evaluate the same f32
 # expressions without FMA contraction, so they agree bit for bit unless a
 # compiler reorders a comparison.
 T_EXACT_SHARE = 0.9999
@@ -221,13 +230,17 @@ def bvh_traverse_cuda(
 
 
 def bvh_traverse(scene, ro, rd, t_init, resolved0, any_hit, eps):
-    """The twin for CPU rays, the kernel for CUDA rays."""
+    """K2 or K4 as ``RT_BVH_KERNEL`` selects (default ``widesmem``: K2):
+    the twin for CPU rays, the kernel for CUDA rays."""
     dev = as3(ro)[0].device
+    binary = os.environ.get("RT_BVH_KERNEL", "widesmem") not in WIDE_VARIANTS
     if dev.type == "cpu":
-        return bvh_traverse_twin(scene, ro, rd, t_init, resolved0, any_hit, eps)
-    if dev.type == "cuda":
-        return bvh_traverse_cuda(scene, ro, rd, t_init, resolved0, any_hit, eps)
-    raise ValueError(f"unsupported device {dev}")
+        fn = bvh_binary_twin if binary else bvh_traverse_twin
+    elif dev.type == "cuda":
+        fn = bvh_binary_cuda if binary else bvh_traverse_cuda
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return fn(scene, ro, rd, t_init, resolved0, any_hit, eps)
 
 
 def leaf_t(scene: SceneArrays, ro, rd, idx: torch.Tensor) -> torch.Tensor:

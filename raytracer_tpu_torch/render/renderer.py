@@ -10,13 +10,14 @@ summed on the device, and serves in at least ``DELIVERY_BANDS`` bands.
 
 Two engines (``select_band_engine``): the bounce megakernel
 (``ops.megakernel.render_band_mega``, K1) and the streaming regen engine
-(``render.wavefront.render_band_regen``, with K2 and K3 on BVH scenes). A
-scene on the GPU runs the CUDA kernels, a scene on the CPU their plain
-PyTorch twins. The megakernel's 32-bit band seed is derived from
-``(cfg.seed, y0, salt)`` with the kernel's counter hash (the JAX package
-folds y0 and the salt into a ``jax.random`` key); the regen engine keys its
-draws on the frame slot, so its seed is derived from ``(cfg.seed, salt)``
-and a pixel's samples do not depend on the band that holds it.
+(``render.wavefront.render_band_regen``, with K3 and the BVH traversal, K2
+or K4, on BVH scenes). A scene on the GPU runs the CUDA kernels, a scene
+on the CPU their plain PyTorch twins. The megakernel's 32-bit band seed is
+derived from ``(cfg.seed, y0, salt)`` with the kernel's counter hash (the
+JAX package folds y0 and the salt into a ``jax.random`` key); the regen
+engine keys its draws on the frame slot, so its seed is derived from
+``(cfg.seed, salt)`` and a pixel's samples do not depend on the band that
+holds it.
 
 Finalize reproduces the reference's per-subpixel clamp-then-average and
 gamma pipeline (src/server.rs:360-368) in numpy (``finalize``) and on the
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu.config import RenderConfig
-from raytracer_tpu_torch.models.scene import LIGHT_SPHERE, SceneArrays
+from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.ops.intersect import scene_precompute
 from raytracer_tpu_torch.ops.megakernel import band_seed, render_band_mega, supports_megakernel
 from raytracer_tpu_torch.render.wavefront import render_band_regen
@@ -40,18 +41,14 @@ from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 def select_band_engine(scene: SceneArrays, cfg: RenderConfig) -> str:
     """The engine that renders ``scene`` under ``cfg``: ``"mega"`` for the
-    megakernel's subset (``cfg.engine`` "mega", the default), else
-    ``"regen"``. Both cover NEE with diffuse and mirror materials and a
-    sphere light; MIS, Phong and mesh lights raise (slice three), and so do
-    the engines not ported ("simple", "fused")."""
+    megakernel's subset (``cfg.engine`` "mega", the default: NEE, diffuse
+    and mirror materials, a sphere light, no BVH), else ``"regen"``, which
+    also covers MIS, Phong and mesh lights, as in
+    ``raytracer_tpu/render/renderer.py:134``. The engines not ported
+    ("simple", "fused") raise."""
     if cfg.engine not in ("mega", "regen"):
         raise NotImplementedError(
             f"engine {cfg.engine!r} is not ported (raytracer_tpu_torch has 'mega' and 'regen')"
-        )
-    if cfg.use_mis or scene.has_phong or scene.light_type != LIGHT_SPHERE:
-        raise NotImplementedError(
-            f"scene {scene.name!r} with use_mis={cfg.use_mis} needs MIS, Phong or a mesh "
-            "light, which are ROADMAP.md queue 1 item 6 (slice three)"
         )
     if cfg.engine == "mega" and supports_megakernel(scene, cfg):
         return "mega"

@@ -1,10 +1,12 @@
 """Offline render CLI: scene TOML -> PNG, on one device.
 
     python -m raytracer_tpu_torch.tools.render scenes/cornell_box.toml \\
-        --spp 64 --out cornell.png [--width 600 --height 450] [--device cuda]
+        --spp 64 --out cornell.png [--mis] [--width 600 --height 450] [--device cuda]
 
 Port of ``raytracer_tpu/tools/render.py``. The PNG is written by the
 standard library's zlib (``utils/png.py``), so no imaging package is needed.
+``RT_BVH_KERNEL=binary`` in the environment traces mesh scenes with the
+binary skip-link walk (K4) instead of the 8-wide traversal (K2).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=None, help="output PNG (default <scene>.png)")
     parser.add_argument("--width", type=int, default=600)
     parser.add_argument("--height", type=int, default=450)
+    parser.add_argument("--mis", action="store_true", help="enable multiple importance sampling")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-depth", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
@@ -31,7 +34,7 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.render.renderer import make_renderer
     from raytracer_tpu_torch.utils.png import write_png
 
-    kwargs = dict(width=args.width, height=args.height, seed=args.seed)
+    kwargs = dict(width=args.width, height=args.height, use_mis=args.mis, seed=args.seed)
     if args.max_depth is not None:
         kwargs["max_depth"] = args.max_depth
     cfg = RenderConfig(**kwargs)

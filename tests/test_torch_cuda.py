@@ -105,6 +105,30 @@ def test_traversal_kernel_matches_twin_on_gpu(cuda, any_hit):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_binary_walk_kernel_matches_twin_on_gpu(cuda, any_hit):
+    from raytracer_tpu_torch.ops import bvh_binary as bb
+    from raytracer_tpu_torch.ops import bvh_traverse as bt
+
+    eps = RenderConfig().eps
+    scene = load_scene(os.path.join(SCENES, "crewmate_phong.toml"), device=cuda)
+    n = 1 << 15
+    ro, rd = _unicorn_rays(scene, n, 4, cuda)
+    g = torch.Generator().manual_seed(5)
+    t_init = torch.where(torch.rand(n, generator=g) < 0.5, bt.INF, 10 + 200 * torch.rand(n, generator=g)).to(cuda)
+    resolved = (torch.rand(n, generator=g) < 0.1).to(cuda)
+    before = bb.LAUNCHES
+    t_k, i_k = bb.bvh_binary_cuda(scene, ro, rd, t_init, resolved, any_hit, eps)
+    assert bb.LAUNCHES == before + 1
+    t_t, i_t = bb.bvh_binary_twin(scene, ro, rd, t_init, resolved, any_hit, eps)
+    torch.cuda.synchronize()
+    assert (t_k == t_t).double().mean().item() >= bt.T_EXACT_SHARE
+    diff = i_k != i_t
+    assert torch.equal(bt.leaf_t(scene, ro, rd, i_k)[diff], bt.leaf_t(scene, ro, rd, i_t)[diff])
+    assert (t_k < t_init).sum() > n // 20
+
+
+@pytest.mark.cuda
 def test_unicorn_renders_through_k2_and_k3(cuda):
     from raytracer_tpu_torch.ops import bvh_traverse, keys
 
@@ -114,4 +138,18 @@ def test_unicorn_renders_through_k2_and_k3(cuda):
     k0, b0 = keys.LAUNCHES, bvh_traverse.LAUNCHES
     img = r.render_image(8)
     assert keys.LAUNCHES > k0 and bvh_traverse.LAUNCHES > b0
+    assert img.shape == (48, 64, 3) and img.mean() > 20
+
+
+@pytest.mark.cuda
+def test_crewmate_binary_variant_renders_through_k4(cuda, monkeypatch):
+    from raytracer_tpu_torch.ops import bvh_binary, bvh_traverse
+
+    monkeypatch.setenv("RT_BVH_KERNEL", "binary")
+    scene = load_scene(os.path.join(SCENES, "crewmate_phong.toml"), device=cuda)
+    r = Renderer(scene, RenderConfig(width=64, height=48, use_mis=True))
+    assert r.engine == "regen"
+    k4, k2 = bvh_binary.LAUNCHES, bvh_traverse.LAUNCHES
+    img = r.render_image(8)
+    assert bvh_binary.LAUNCHES > k4 and bvh_traverse.LAUNCHES == k2
     assert img.shape == (48, 64, 3) and img.mean() > 20

@@ -12,6 +12,7 @@ MODULES = (
     "raytracer_tpu_torch.ops.bvh",
     "raytracer_tpu_torch.ops.keys",
     "raytracer_tpu_torch.ops.bvh_traverse",
+    "raytracer_tpu_torch.ops.bvh_binary",
     "raytracer_tpu_torch.ops.intersect",
     "raytracer_tpu_torch.ops.brdf",
     "raytracer_tpu_torch.render.integrator",

@@ -5,7 +5,7 @@
   valid masks equal, t within rtol 2e-4 / atol 1e-4, object ids equal;
 - ``gather_mat``, ``eval_nonspecular3``, ``sample3`` and ``sample_light3``
   on the same uniforms, rtol 1e-5 (the JAX frame uses rsqrt, the port
-  1/sqrt).
+  1/sqrt), with and without the Phong arms.
 """
 
 import os
@@ -24,6 +24,7 @@ from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import brdf
 from raytracer_tpu_torch.ops import intersect as ix
 from raytracer_tpu_torch.render.integrator import sample_light3
+from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EPS = Epsilons()
@@ -130,10 +131,23 @@ def test_eval_and_sample_match_jax(shading):
 
 
 def test_phong_raises_slice_three(shading):
-    _, port, obj, nrm, o, u = shading
+    """The Phong arms now evaluate (``has_phong=True``), and agree with JAX's
+    on a scene whose lanes are diffuse and mirror: the Phong lobe is masked
+    off them exactly. tests/test_torch_phong_mis.py holds Phong lanes."""
+    ref, port, obj, nrm, o, u = shading
+    jm = jax_brdf.gather_mat(ref, jnp.asarray(obj))
     pm = brdf.gather_mat(port, torch.from_numpy(obj).long())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        brdf.sample3(pm, _t3(nrm), _t3(o), *[torch.from_numpy(x) for x in u], True, True)
+    wi_j, pdf_j = jax_brdf.sample3(jm, _j3(nrm), _j3(o), *[jnp.asarray(x) for x in u], True, True)
+    wi_p, pdf_p = brdf.sample3(pm, _t3(nrm), _t3(o), *[torch.from_numpy(x) for x in u], True, True)
+    for k in range(3):
+        np.testing.assert_allclose(wi_p[k].numpy(), np.asarray(wi_j[k]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(pdf_p.numpy(), np.asarray(pdf_j), rtol=1e-5, atol=1e-6)
+    wi = np.stack([np.asarray(c) for c in wi_j], 1)
+    f_j = jax_brdf.eval_nonspecular3(jm, _j3(nrm), _j3(o), _j3(wi), True)
+    f_p = brdf.eval_nonspecular3(pm, _t3(nrm), _t3(o), _t3(wi), True)
+    np.testing.assert_allclose(f_p.numpy(), np.asarray(f_j), rtol=1e-5)
+    f_off = brdf.eval_nonspecular3(pm, _t3(nrm), _t3(o), _t3(wi), False)
+    assert torch.equal(f_p, f_off)
 
 
 def test_sample_light_matches_jax(shading):

@@ -16,6 +16,7 @@ from raytracer_tpu.ops.bvh import _coherence_key
 from raytracer_tpu_torch.models.camera import camera_rays3
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import keys
+from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EPS = Epsilons()

@@ -29,6 +29,7 @@ from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops.intersect import scene_precompute
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import megakernel as mk
+from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 LANE_RTOL_VS_JAX = 1e-2

@@ -28,6 +28,7 @@ from raytracer_tpu_torch.ops import bvh_traverse, keys
 from raytracer_tpu_torch.ops.intersect import scene_precompute
 from raytracer_tpu_torch.render.renderer import Renderer
 from raytracer_tpu_torch.render.wavefront import render_band_regen, tail_widths
+from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EXACT_SHARE = 0.999

@@ -17,6 +17,7 @@ from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.render.renderer import Renderer as JaxRenderer
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.render.renderer import Renderer, select_band_engine
+from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 W, H, SPP = 32, 24, 16
@@ -51,8 +52,8 @@ def test_engine_gate_raises_outside_the_slice():
     scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device="cpu")
     assert select_band_engine(scene, RenderConfig()) == "mega"
     assert select_band_engine(scene, RenderConfig(engine="regen")) == "regen"
-    with pytest.raises(NotImplementedError, match="slice three"):
-        select_band_engine(scene, RenderConfig(use_mis=True))
+    # MIS is the regen engine's, as in raytracer_tpu/render/renderer.py:134.
+    assert select_band_engine(scene, RenderConfig(use_mis=True)) == "regen"
     with pytest.raises(NotImplementedError, match="not ported"):
         select_band_engine(scene, RenderConfig(engine="simple"))
 

@@ -1,6 +1,7 @@
 """The port's scene loader and parameter carry-over against the JAX package:
-every kept field equal, exactly, for the default scenes and crewmate_phong
-(its mesh loads; rendering Phong is slice three)."""
+every kept field equal, exactly, for the default scenes and crewmate_phong,
+and the binary node table (K4) equal to the rows of JAX's
+``bvh_nodes_packed``."""
 
 import os
 
@@ -14,6 +15,7 @@ from raytracer_tpu.ops.intersect import tri_precompute as jax_tri_precompute
 from raytracer_tpu_torch.models.convert import scene_from_numpy
 from raytracer_tpu_torch.models.loader import SCENE_NAMES, load_all_scenes, load_scene
 from raytracer_tpu_torch.models.scene import META_FIELDS, TENSOR_FIELDS
+from raytracer_tpu_torch.ops.bvh import MAX_LEAF
 from raytracer_tpu_torch.ops.intersect import tri_precompute
 from raytracer_tpu_torch.render.renderer import select_band_engine
 
@@ -66,6 +68,24 @@ def test_scene_from_numpy_equals_loader(pair):
         assert getattr(conv, k) == getattr(port, k), k
 
 
+def test_binary_node_table_equals_jax(pair):
+    """Row i of ``bvh_binary_nodes`` holds (lo, skip, hi, count, first) of
+    binary node i: the fields 0-8 (lo, hi, skip, first, count) of lane
+    i%128 in tile i//128 of JAX's ``bvh_nodes_packed``."""
+    ref, port = pair
+    nodes = port.bvh_binary_nodes.numpy()
+    n = ref.bvh_lo.shape[0]
+    assert nodes.shape == (n, 12) and nodes.dtype == np.float32
+    jax_rows = np.asarray(ref.bvh_nodes_packed).transpose(0, 2, 1).reshape(-1, 16)[:n, :9]
+    np.testing.assert_array_equal(nodes[:, [0, 1, 2, 4, 5, 6, 3, 8, 7]], jax_rows)
+    assert (nodes[:, 9:] == 0).all()
+    if port.use_bvh:
+        leaves = nodes[:, 7] > 0
+        assert (nodes[leaves, 8] % MAX_LEAF == 0).all()
+        assert (nodes[leaves, 8] + nodes[leaves, 7] <= port.bvh_leaf_tris.shape[0]).all()
+        assert (nodes[:, 3] > np.arange(n)).all() and (nodes[:, 3] <= n).all()
+
+
 def test_tri_precompute_matches_jax(flat_pair):
     ref, port = flat_pair
     want = jax_tri_precompute(ref.tri_a, ref.tri_b, ref.tri_c)
@@ -78,14 +98,14 @@ def test_tri_precompute_matches_jax(flat_pair):
 
 
 def test_mesh_scene_raises_slice_two():
-    """Slice two made mesh scenes load (behind a BVH) and render through the
-    regen engine; what still raises is Phong, slice three."""
+    """Mesh scenes load (behind a BVH) and render through the regen engine,
+    Phong ones too (crewmate_phong), with or without MIS."""
     unicorn = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device="cpu")
     assert unicorn.use_bvh and select_band_engine(unicorn, RenderConfig()) == "regen"
     crewmate = load_scene(os.path.join(SCENES, "crewmate_phong.toml"), device="cpu")
     assert crewmate.use_bvh and crewmate.has_phong
-    with pytest.raises(NotImplementedError, match="slice three"):
-        select_band_engine(crewmate, RenderConfig())
+    assert select_band_engine(crewmate, RenderConfig()) == "regen"
+    assert select_band_engine(crewmate, RenderConfig(use_mis=True)) == "regen"
 
 
 def test_default_scenes_are_the_references():

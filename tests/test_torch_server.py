@@ -17,6 +17,7 @@ from raytracer_tpu.server.app import Server as JaxServer
 from raytracer_tpu.server.wire import parse_chunk
 from raytracer_tpu_torch.models.loader import load_all_scenes
 from raytracer_tpu_torch.server.app import Server
+from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 NAMES = ("cornell_box", "cubes")

@@ -22,6 +22,7 @@ from raytracer_tpu_torch.models.scene import build_scene_arrays
 from raytracer_tpu_torch.ops import bvh
 from raytracer_tpu_torch.ops import bvh_traverse as bt
 from tests.test_bvh import _scene_with_mesh_bvh, random_tri_soup
+from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EPS = Epsilons()
