@@ -1,8 +1,14 @@
 """Smoke test of the PyTorch + CUDA port on one GPU: ``python3 chip_smoke.py``.
 
 Builds the port's four kernels from ``raytracer_tpu_torch/ops/csrc`` (one
-nvcc each, all at once), holds each against its plain PyTorch twin on the
-card, then drives the port's three main paths the way a user would:
+nvcc each, all at once) and prints what ``-Xptxas -v`` says of each
+(registers, stack frame, spills). Holds each kernel against its plain
+PyTorch twin on the card: K1 on a cornell_box and a cubes band, and its
+all-bands frame launch against the bands launched one by one; K2 and K4 at
+every ray class and width of the main path; K3 on every class. Counts, with
+the twins, the visits of the BVH walks and the rays of K1 that the bounds
+below rest on.
+Then drives the port's three main paths the way a user would:
 
 - the megakernel path (K1): offline ``Renderer.render_image`` of
   cornell_box and cubes at the reference's 600x450 against the repo's own
@@ -22,6 +28,11 @@ just after, and fails if one of its kernels was not launched. Every phase
 raises on failure, so the exit code is non-zero. Without CUDA it exits
 non-zero at once.
 
+Last come the times: each kernel per launch at the main path's shapes and
+per frame, beside its plain twin and its bound (the larger of its
+operations over the card's f32 peak and its bytes over the memory rate,
+from this run's inputs and counts).
+
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -32,7 +43,6 @@ from __future__ import annotations
 import asyncio
 import json
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -64,18 +74,68 @@ VARIANT_PIXEL_SHARE = 0.999
 # below IMAGE_MAD_MAX.
 MIS_MEAN = (111.0, 114.0)
 
+# Peak rates of one H100 SXM (NVIDIA's data sheet): f32 outside the tensor
+# cores, counting a fused multiply-add as two operations, and HBM3. The
+# kernels are built with FMA contraction off, so every add and multiply is
+# an instruction of its own; PEAK_F32_INSTR is the rate at which the card
+# issues them, which bounds FMA-free code instead.
+PEAK_F32_FLOPS = 67e12
+PEAK_F32_INSTR = 33.5e12
+PEAK_BYTES = 3.35e12
+
+# Operations per unit of work, counted from the CUDA sources (an add, sub,
+# mul, division, square root, sine, cosine, min, max or float compare is
+# one; the counter hash's integer work and the loads are not counted).
+# K1 (megakernel.cu): one sphere/plane/triangle test in trace or occluded;
+# a camera ray's regeneration; a bounce besides its trace (hit point and
+# normal, emission, Russian roulette, BSDF sample, throughput); a shadow
+# ray besides its trace (the light sample, the geometry terms).
+K1_OPS = dict(sphere=25, plane=21, tri=47, camera=46, bounce=130, shadow=60)
+# K2 (bvh8.cu) and K4 (bvh_binary.cu): per ray (the inverse direction), per
+# node visited (K2: 8 slab tests of 26; K4: one of 27), per real leaf
+# triangle (K2: denom, t and the tests on t; K4: all of the test) and, for
+# K2, per candidate triangle (u, v and their tests, which the search needs
+# only for a t that can still win: the least work, not what the kernel,
+# which computes them for every real triangle, does).
+K2_OPS = dict(ray=9, node=208, tri=16, cand=30)
+K4_OPS = dict(ray=9, node=27, tri=48, cand=0)
+# K3 (coherence_key.cu): per ray (inverse direction, octant, Morton code)
+# and per treetop-cut box (one slab test and the compares).
+K3_OPS = dict(ray=33, cut=26)
+
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()].strip()
+def bound_ms(ops: float, nbytes: float) -> tuple[float, str, float]:
+    """(least time in ms, "operations" or "bytes", the operations' time at
+    the FMA-free instruction rate)."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops / PEAK_F32_INSTR * 1e3
+
+
+def k1_work(static, lanes: int, num_samples: int, rays: int, shadow_share: float):
+    """(operations, bytes) of one K1 launch: ``rays`` traced in all, a
+    ``shadow_share`` of them shadow rays (counted by the twin on a band of
+    the same scene), ``num_samples`` camera rays a lane."""
+    ns, npl, nt = static.n_spheres, static.n_planes, static.n_tris
+    trace = K1_OPS["sphere"] * ns + K1_OPS["plane"] * npl + K1_OPS["tri"] * nt
+    shadow = rays * shadow_share
+    bounces = rays - shadow
+    ops = (lanes * num_samples * K1_OPS["camera"] + bounces * (trace + K1_OPS["bounce"])
+           + shadow * (trace + K1_OPS["shadow"]))
+    return ops, lanes * 16 + (20 + 5 * ns + 7 * npl + 13 * nt + 10 * static.n_objects) * 4
+
+
+def walk_work(table: dict, visits: dict, n: int, table_bytes: int):
+    """(operations, bytes) of one K2 or K4 launch over ``n`` rays with the
+    twin's counted visits: 37 bytes a ray (origin, direction, t_init,
+    resolved0 in; t, index out) and the scene's tables once."""
+    ops = (n * table["ray"] + visits["nodes"] * table["node"] + visits["tris"] * table["tri"]
+           + visits["cand"] * table["cand"])
+    return ops, n * 37 + table_bytes
 
 
 def lane_diff(kernel: torch.Tensor, twin: torch.Tensor, rtol: float):
@@ -85,73 +145,12 @@ def lane_diff(kernel: torch.Tensor, twin: torch.Tensor, rtol: float):
     return d.max().item(), (d > tol).any(dim=1).double().mean().item()
 
 
-def event_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    for _ in range(reps):
-        fn()
-    ev1.record()
-    torch.cuda.synchronize()
-    return ev0.elapsed_time(ev1) / reps
-
-
 def wall_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
-
-
-def scene_rays(scene, pre, cfg, n_each: int, seed: int = 20261016):
-    """The ray classes of the regen engine on a BVH scene, on the scene's
-    device: every camera ray of the frame (one per lane), and, from the
-    first hits of ``n_each`` of them, BSDF-bounce rays and shadow rays to
-    light samples bounded at ``dist - visibility_margin``. Returns
-    (camera (ro, rd), {class: (ro, rd, t_init, resolved0, any_hit)})."""
-    from raytracer_tpu_torch.models import vecmath as vm
-    from raytracer_tpu_torch.models.camera import camera_rays3
-    from raytracer_tpu_torch.ops import brdf
-    from raytracer_tpu_torch.ops.intersect import trace_soa
-    from raytracer_tpu_torch.ops.megakernel import uniform
-    from raytracer_tpu_torch.render.integrator import sample_light3
-
-    dev, eps = scene.device, cfg.eps
-    n = cfg.width * cfg.height * 4
-    slot = torch.arange(n, device=dev)
-    pix, sub = slot // 4, slot % 4
-    f32 = torch.float32
-    cam = camera_rays3(
-        scene, cfg.width, cfg.height, cfg.fov_scale,
-        (pix % cfg.width).to(f32), (pix // cfg.width).to(f32), (sub % 2).to(f32), (sub // 2).to(f32),
-        uniform(seed, slot, 0, 0), uniform(seed, slot, 0, 1),
-    )
-    g = torch.Generator(device=dev).manual_seed(seed)
-    pick = torch.randperm(n, generator=g, device=dev)[:n_each]
-    ro = tuple(c[pick].contiguous() for c in cam[0])
-    rd = tuple(c[pick].contiguous() for c in cam[1])
-    hit = trace_soa(scene, pre, ro, rd, eps)
-    mat = brdf.gather_mat(scene, hit.obj)
-    u = [torch.rand(n_each, generator=g, device=dev) for _ in range(4)]
-    wi, _ = brdf.sample3(mat, hit.n, vm.neg3(rd), u[0], u[1], u[2], cfg.fix_phong_frame, scene.has_phong)
-    y, _, _ = sample_light3(scene, u[2], u[3], u[1])
-    to_y = vm.sub3(y, hit.pos)
-    dist = torch.sqrt(vm.norm2_3(to_y))
-    wi_d = vm.scale3(to_y, 1.0 / torch.clamp_min(dist, 1e-20))
-    bound = torch.where(hit.valid, dist - eps.visibility_margin, 0.0)
-    inf = torch.full((n_each,), 3.0e38, device=dev)
-    none = torch.zeros(n_each, dtype=torch.bool, device=dev)
-    res0 = torch.rand(n_each, generator=g, device=dev) < 0.1
-    classes = {
-        "camera": (ro, rd, inf, none, False),
-        "bounce": (hit.pos, wi, inf, none, False),
-        "shadow": (hit.pos, wi_d, bound, none, False),
-        "shadow-any-hit": (hit.pos, wi_d, bound, res0 | (bound <= 0), True),
-    }
-    return cam, classes
 
 
 def sorted_runs(scene, classes, widths, eps):
@@ -173,36 +172,50 @@ def sorted_runs(scene, classes, widths, eps):
     return runs, bounce
 
 
-def hold_traversal(label, kernel, twin, runs):
-    """Each run through the kernel and its twin: t bit-equal on at least
+def hold_traversal(label, kernels, twin, runs):
+    """Each run through its twin once and through each kernel of
+    ``kernels`` ({arm name: function}): t bit-equal on at least
     ``T_EXACT_SHARE`` of all rays, indices that differ only on ties.
-    Returns (max |dt| where both hit, rays, rays bit-equal)."""
+    Returns the max |dt| where both hit."""
     from raytracer_tpu_torch.ops import bvh_traverse as bt
 
-    worst, total, equal = 0.0, 0, 0
+    worst, total, equal = 0.0, 0, {arm: 0 for arm in kernels}
     for cname, args in runs:
         scene, ro_s, rd_s, t_init_s, _, any_hit, _ = args
-        t_k, i_k = kernel(*args)
         t_t, i_t = twin(*args)
-        torch.cuda.synchronize()
-        same = t_k == t_t
-        idx_diff = i_k != i_t
-        ties_ok = torch.equal(bt.leaf_t(scene, ro_s, rd_s, i_k)[idx_diff],
-                              bt.leaf_t(scene, ro_s, rd_s, i_t)[idx_diff])
-        both = (t_k < 1e30) & (t_t < 1e30)
-        err = (t_k[both] - t_t[both]).abs().max().item() if both.any() else 0.0
-        hits = int((t_k < t_init_s).sum())
-        print(f"[kernel-vs-twin] {label} {scene.name} {cname} rays={t_k.numel()} any_hit={any_hit}: t bit-equal "
-              f"on {same.double().mean().item():.6%}, idx differs on {int(idx_diff.sum())} (ties: {ties_ok}), "
-              f"hits below t_init {hits}, max|dt| {err:.3g}", flush=True)
-        check(ties_ok, f"{label} {scene.name} {cname}: differing indices are not ties")
-        check(hits > t_k.numel() // 50, f"{label} {scene.name} {cname}: only {hits} hits")
-        worst = max(worst, err)
-        total += t_k.numel()
-        equal += int(same.sum())
-    check(equal >= bt.T_EXACT_SHARE * total,
-          f"{label} t bit-equal on {equal}/{total} rays, below {bt.T_EXACT_SHARE}")
-    return worst, total, equal
+        for arm, kernel in kernels.items():
+            name = f"{label}[{arm}]" if arm else label
+            t_k, i_k = kernel(*args)
+            torch.cuda.synchronize()
+            same = t_k == t_t
+            idx_diff = i_k != i_t
+            ties_ok = torch.equal(bt.leaf_t(scene, ro_s, rd_s, i_k)[idx_diff],
+                                  bt.leaf_t(scene, ro_s, rd_s, i_t)[idx_diff])
+            both = (t_k < 1e30) & (t_t < 1e30)
+            err = (t_k[both] - t_t[both]).abs().max().item() if both.any() else 0.0
+            hits = int((t_k < t_init_s).sum())
+            print(f"[kernel-vs-twin] {name} {scene.name} {cname} rays={t_k.numel()} any_hit={any_hit}: t bit-equal "
+                  f"on {same.double().mean().item():.6%}, idx differs on {int(idx_diff.sum())} (ties: {ties_ok}), "
+                  f"hits below t_init {hits}, max|dt| {err:.3g}", flush=True)
+            check(ties_ok, f"{name} {scene.name} {cname}: differing indices are not ties")
+            check(hits > t_k.numel() // 50, f"{name} {scene.name} {cname}: only {hits} hits")
+            worst = max(worst, err)
+            equal[arm] += int(same.sum())
+        total += t_t.numel()
+    for arm, eq in equal.items():
+        check(eq >= bt.T_EXACT_SHARE * total,
+              f"{label}[{arm}] t bit-equal on {eq}/{total} rays, below {bt.T_EXACT_SHARE}")
+    return worst
+
+
+# What the redesigned kernels keep of their design steps (the kernels line's
+# "redesigned"; each step and its alternatives are timed by
+# ``raytracer_tpu_torch/tools/kernel_steps.py``). Stated here, not read from
+# a document, so the script needs nothing of the checkout but the program.
+REDESIGNED = {
+    "K1": "all bands of a frame in one launch; material rows in shared memory; __launch_bounds__(128, 8)",
+    "K2": "real leaf triangles only; a triangle's rows loaded together; nodes through the read-only cache",
+}
 
 
 def with_variant(variant: str, fn):
@@ -223,8 +236,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from raytracer_tpu.config import RenderConfig
-    from raytracer_tpu.server.wire import parse_chunk, parse_chunks
+    from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.models.loader import load_scene
     from raytracer_tpu_torch.ops import _build
     from raytracer_tpu_torch.ops import bvh_binary as bb
@@ -234,6 +246,8 @@ def main() -> int:
     from raytracer_tpu_torch.ops.intersect import scene_precompute
     from raytracer_tpu_torch.render.renderer import Renderer
     from raytracer_tpu_torch.server.app import RenderJob, Server
+    from raytracer_tpu_torch.server.wire import parse_chunk, parse_chunks
+    from raytracer_tpu_torch.tools.kernel_steps import card, event_ms, ptxas_lines, scene_rays
     from raytracer_tpu_torch.utils.png import read_png
 
     def zero_counts() -> None:
@@ -250,21 +264,26 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
     print(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
-    for lib, log in built:
+    for src, (lib, log) in zip(sources, built):
         print(f"[build] {lib}\n{log.strip()}", flush=True)
+        for line in ptxas_lines(log) or ["built before this run: no ptxas output"]:
+            print(f"[ptxas] {src}: {line}", flush=True)
 
     cfg = RenderConfig()
     w = cfg.width
     scenes = {s: load_scene(os.path.join(ROOT, "scenes", f"{s}.toml"), device="cuda") for s in SCENES}
 
-    # 3) K1 against its twin on the card: one 50-row band, 8 samples, same seed
+    # 3) K1 against its twin on the card: one 50-row band, 8 samples, same
+    # seed; the twin also counts the band's camera, bounce and shadow rays.
     rows, ns, seed, y0 = 50, 8, 20261016, 200
     n = rows * w * 4
     max_err = 0.0
+    shadow_share = {}
     for s in SCENES:
         pf, static = mk.pack_params(scenes[s], cfg)
         acc_k, rays_k = mk.mega_cuda(pf, static, y0, ns, n, seed, "cuda")
-        acc_t, rays_t = mk.mega_twin(pf, static, y0, ns, n, seed, "cuda")
+        counts: dict = {}
+        acc_t, rays_t = mk.mega_twin(pf, static, y0, ns, n, seed, "cuda", counts=counts)
         torch.cuda.synchronize()
         err, bad = lane_diff(acc_k, acc_t, mk.LANE_RTOL)
         _, bad_rays = lane_diff(rays_k, rays_t, 0.0)
@@ -281,6 +300,21 @@ def main() -> int:
         check(1.0 - bad_rays >= mk.LANE_SHARE, f"{s}: ray counts differ on {bad_rays:.4%} of lanes")
         check(abs(mean_k - mean_t) <= mk.BAND_RTOL * abs(mean_t), f"{s}: band means differ")
         max_err = max(max_err, err)
+        shadow_share[s] = counts["shadow"] / (counts["bounces"] + counts["shadow"])
+        print(f"[count] K1 {s} band (twin): {counts['samples']} camera rays, {counts['bounces']} bounces, "
+              f"{counts['shadow']} shadow rays (shadow share {shadow_share[s]:.4f})", flush=True)
+        # The frame's bands in one launch (the main path's form) against the
+        # same bands launched one by one.
+        rows_f = Renderer(scenes[s], cfg, device="cuda").plan(4 * ns)[0]
+        n_f = rows_f * w * 4
+        bands = [(yy, mk.band_seed(cfg.seed, yy, 0)) for yy in range(0, cfg.height, rows_f)]
+        acc_f, rays_f = mk.mega_cuda_bands(pf, static, bands, ns, n_f, "cuda")
+        one = [mk.mega_cuda(pf, static, yy, ns, n_f, sd, "cuda") for yy, sd in bands]
+        same_bands = torch.equal(acc_f, torch.cat([o[0] for o in one])) and torch.equal(
+            rays_f, torch.cat([o[1] for o in one]))
+        print(f"[kernel-vs-kernel] K1 {s}: one launch of {len(bands)} bands x {n_f} lanes, {ns} samples, "
+              f"equal to {len(bands)} one-band launches on every lane: {same_bands}", flush=True)
+        check(same_bands, f"{s}: the all-bands launch differs from the one-band launches")
 
     # 4) K3 and K2 against their twins on flying_unicorn rays
     t0 = time.perf_counter()
@@ -312,7 +346,7 @@ def main() -> int:
     widths = sorted(set(tail_widths(n_frame, cfg, True) + [n_band] + tail_widths(n_band, cfg, True)),
                     reverse=True)
     uni_runs, bounce_args = sorted_runs(uni, classes, widths, cfg.eps)
-    k2_err, _, _ = hold_traversal("K2", bt.bvh_traverse_cuda, bt.bvh_traverse_twin, uni_runs)
+    k2_err = hold_traversal("K2", {"": bt.bvh_traverse_cuda}, bt.bvh_traverse_twin, uni_runs)
 
     # 4b) K4 against its twin on crewmate_phong and flying_unicorn rays, the
     # same classes and widths; and against K2 on the nearest-hit classes
@@ -325,17 +359,33 @@ def main() -> int:
           f"nodes, in {time.perf_counter() - t0:.2f} s", flush=True)
     _, crew_classes = scene_rays(crew, crew_pre, cfg, n_frame)
     crew_runs, crew_bounce = sorted_runs(crew, crew_classes, widths, cfg.eps)
+    k2_err = max(k2_err, hold_traversal("K2", {"": bt.bvh_traverse_cuda}, bt.bvh_traverse_twin, crew_runs))
     k4_err = 0.0
     for runs in (crew_runs, uni_runs):
-        k4_err = max(k4_err, hold_traversal("K4", bb.bvh_binary_cuda, bb.bvh_binary_twin, runs)[0])
+        k4_err = max(k4_err, hold_traversal("K4", {"": bb.bvh_binary_cuda}, bb.bvh_binary_twin, runs))
         for cname, args in runs[:3]:  # camera, bounce, shadow: nearest hits
             t4, _ = bb.bvh_binary_cuda(*args)
             t2, _ = bt.bvh_traverse_cuda(*args)
-            print(f"[K4-vs-K2] {args[0].name} {cname} rays={t4.numel()}: t bit-equal on "
-                  f"{(t4 == t2).double().mean().item():.6%}", flush=True)
+            same = (t4 == t2).double().mean().item()
+            print(f"[K4-vs-K2] {args[0].name} {cname} rays={t4.numel()}: t bit-equal on {same:.6%}", flush=True)
+            check(same >= bt.T_EXACT_SHARE, f"K4 and K2 differ on {args[0].name} {cname}")
+
+    # 4c) the visits the walks need on the frame's sorted bounce rays,
+    # counted by the twins (the bounds of K2 and K4 below rest on them)
+    visits = {}
+    for sname, args in (("flying_unicorn", bounce_args), ("crewmate_phong", crew_bounce)):
+        n_r = args[1][0].numel()
+        for kname, twin in (("K2", bt.bvh_traverse_twin), ("K4", bb.bvh_binary_twin)):
+            v: dict = {}
+            twin(*args, visits=v)
+            visits[kname, sname] = v
+            print(f"[visits] {kname} {sname} {n_r} sorted bounce rays (twin): per ray {v['nodes'] / n_r:.4f} "
+                  f"nodes, {v['leaves'] / n_r:.4f} leaves, {v['tris'] / n_r:.3f} real leaf triangles, "
+                  f"{v['cand'] / n_r:.3f} candidates (t could still win)", flush=True)
 
     # 5) the megakernel path, offline (counts from here to the end of phase 6)
     zero_counts()
+    k1_per_frame = {}
     for s in SCENES:
         before = mk.LAUNCHES
         r = Renderer(scenes[s], RenderConfig(), device="cuda")
@@ -355,7 +405,8 @@ def main() -> int:
         )
         lo, hi = IMAGE_MEAN[s]
         check(img.shape == (450, 600, 3) and img.dtype == np.uint8, f"{s}: image {img.shape}")
-        check(mk.LAUNCHES > before, f"{s}: the megakernel was not launched")
+        k1_per_frame[s] = mk.LAUNCHES - before
+        check(k1_per_frame[s] == 1, f"{s}: the frame took {k1_per_frame[s]} K1 launches, not one")
         check(lo <= mean <= hi, f"{s}: image mean {mean:.3f} outside [{lo}, {hi}]")
         check(mad < IMAGE_MAD_MAX, f"{s}: MAD {mad:.3f} >= {IMAGE_MAD_MAX}")
 
@@ -558,32 +609,78 @@ def main() -> int:
     check(min(path3.values()) > 0, "the Phong/MIS path did not launch K2, K3 and K4")
     launches["K4"] = path3["K4"]
 
-    # 10) times
+    # 10) times. K1: the main path's launch (a whole 600x450 frame, 1.08M
+    # lanes) at 64 spp beside its twin, and at 256 spp (the headline frame);
+    # a 50-row band at 16 samples (the launch of the served path) beside its
+    # twin.
     pf, static = mk.pack_params(scenes["cornell_box"], cfg)
-    kernel_ms = event_ms(lambda: mk.mega_cuda(pf, static, y0, 16, n, seed, "cuda"), 20)
-    twin_ms = wall_ms(lambda: mk.mega_twin(pf, static, y0, 16, n, seed, "cuda"))
-    print(f"[time] K1 cornell band 600x50 16 samples: kernel {kernel_ms:.4f} ms, twin {twin_ms:.1f} ms | {smi}")
+    band_ms = event_ms(lambda: mk.mega_cuda(pf, static, y0, 16, n, seed, "cuda"), 20)
+    band_twin_ms = wall_ms(lambda: mk.mega_twin(pf, static, y0, 16, n, seed, "cuda"))
+    print(f"[time] K1 cornell band 600x50 16 samples: kernel {band_ms:.4f} ms, twin {band_twin_ms:.1f} ms | {smi}")
+    r = Renderer(scenes["cornell_box"], cfg, device="cuda")
+    rows_f = r.plan(256)[0]
+    n_f = rows_f * w * 4
+    bands = [(yy, mk.band_seed(cfg.seed, yy, 0)) for yy in range(0, cfg.height, rows_f)]
+    lanes_f = len(bands) * n_f
+
+    def k1_frame(samples):
+        return mk.mega_cuda_bands(pf, static, bands, samples, n_f, "cuda")
+
+    kernel_ms = event_ms(lambda: k1_frame(16), 5)
+    twin_ms = wall_ms(lambda: [mk.mega_twin(pf, static, yy, 16, n_f, sd, "cuda") for yy, sd in bands])
+    k1_rays = int(k1_frame(16)[1].sum())
+    k1_ops, k1_bytes = k1_work(static, lanes_f, 16, k1_rays, shadow_share["cornell_box"])
+    k1_bound, k1_by, k1_instr = bound_ms(k1_ops, k1_bytes)
+    print(f"[time] K1 cornell_box 64spp frame (one launch: {len(bands)} bands, {lanes_f} lanes, 16 samples): kernel "
+          f"{kernel_ms:.4f} ms, twin {twin_ms:.1f} ms; {k1_rays} rays, {k1_ops:.4g} operations, {k1_bytes} bytes: "
+          f"bound {k1_bound:.4f} ms ({k1_by}; {k1_instr:.4f} ms at the FMA-free instruction rate), "
+          f"{k1_bound / kernel_ms:.2%} of it reached | {smi}", flush=True)
+    t256 = event_ms(lambda: k1_frame(64), 3)
+    k1_256_rays = int(k1_frame(64)[1].sum())
+    ops256, bytes256 = k1_work(static, lanes_f, 64, k1_256_rays, shadow_share["cornell_box"])
+    b256, by256, instr256 = bound_ms(ops256, bytes256)
+    print(f"[time] K1 cornell_box 256spp frame (one launch, 64 samples): kernel {t256:.4f} ms; {k1_256_rays} "
+          f"rays, bound {b256:.4f} ms ({by256}; {instr256:.4f} ms at the FMA-free instruction rate), "
+          f"{b256 / t256:.2%} of it reached | {smi}", flush=True)
     # K3 on the frame's camera rays, K2 on its coherence-sorted bounce rays.
     k3_ms = event_ms(lambda: keys.coherence_key_cuda(uni, cam[0], cam[1], cfg.eps), 20)
     k3_twin_ms = wall_ms(lambda: keys.coherence_key_twin(uni, cam[0], cam[1], cfg.eps))
     n_cam = cam[0][0].numel()
+    n_cut = uni.bvh_cut_lo.shape[0]
+    k3_bound, k3_by, _ = bound_ms(n_cam * (K3_OPS["ray"] + n_cut * K3_OPS["cut"]), n_cam * 28 + (n_cut + 1) * 24)
     print(f"[time] K3 {n_cam} camera rays: kernel {k3_ms:.4f} ms, twin {k3_twin_ms:.2f} ms; per 1M rays "
-          f"{k3_ms * 1e6 / n_cam:.4f} / {k3_twin_ms * 1e6 / n_cam:.2f} ms | {smi}", flush=True)
+          f"{k3_ms * 1e6 / n_cam:.4f} / {k3_twin_ms * 1e6 / n_cam:.2f} ms; bound {k3_bound:.4f} ms ({k3_by}), "
+          f"{k3_bound / k3_ms:.2%} of it reached | {smi}", flush=True)
     k2_ms = event_ms(lambda: bt.bvh_traverse_cuda(*bounce_args), 10)
     k2_twin_ms = wall_ms(lambda: bt.bvh_traverse_twin(*bounce_args))
-    print(f"[time] K2 {n_frame} sorted bounce rays: kernel {k2_ms:.4f} ms, twin {k2_twin_ms:.2f} ms; per 1M "
-          f"rays {k2_ms * 1e6 / n_frame:.4f} / {k2_twin_ms * 1e6 / n_frame:.2f} ms | {smi}", flush=True)
+    table_bytes = lambda sc, nodes: nodes.numel() * 4 + sc.bvh_leaf_tris.numel() * 4  # noqa: E731
+    k2_ops, k2_bytes = walk_work(K2_OPS, visits["K2", "flying_unicorn"], n_frame,
+                                 table_bytes(uni, uni.bvh8_nodes_flat))
+    k2_bound, k2_by, k2_instr = bound_ms(k2_ops, k2_bytes)
+    print(f"[time] K2 {n_frame} sorted unicorn bounce rays: kernel {k2_ms:.4f} ms, twin {k2_twin_ms:.2f} ms; per 1M "
+          f"rays {k2_ms * 1e6 / n_frame:.4f} / {k2_twin_ms * 1e6 / n_frame:.2f} ms; {k2_ops:.4g} operations, "
+          f"{k2_bytes} bytes: bound {k2_bound:.4f} ms ({k2_by}; {k2_instr:.4f} ms at the FMA-free instruction rate), "
+          f"{k2_bound / k2_ms:.2%} of it reached | {smi}", flush=True)
     # K4 on the frame's sorted crewmate bounce rays beside K2 on the same
     # rays, and on the unicorn's.
     k4_ms = event_ms(lambda: bb.bvh_binary_cuda(*crew_bounce), 10)
     k4_twin_ms = wall_ms(lambda: bb.bvh_binary_twin(*crew_bounce))
     k2_crew_ms = event_ms(lambda: bt.bvh_traverse_cuda(*crew_bounce), 10)
     k4_uni_ms = event_ms(lambda: bb.bvh_binary_cuda(*bounce_args), 10)
+    k4_ops, k4_bytes = walk_work(K4_OPS, visits["K4", "crewmate_phong"], n_frame,
+                                 table_bytes(crew, crew.bvh_binary_nodes))
+    k4_bound, k4_by, k4_instr = bound_ms(k4_ops, k4_bytes)
+    k2c_bound = bound_ms(*walk_work(K2_OPS, visits["K2", "crewmate_phong"], n_frame,
+                                    table_bytes(crew, crew.bvh8_nodes_flat)))[0]
+    k4u_bound = bound_ms(*walk_work(K4_OPS, visits["K4", "flying_unicorn"], n_frame,
+                                    table_bytes(uni, uni.bvh_binary_nodes)))[0]
     print(f"[time] K4 {n_frame} sorted crewmate bounce rays: kernel {k4_ms:.4f} ms, twin {k4_twin_ms:.2f} ms, "
           f"K2 {k2_crew_ms:.4f} ms; per 1M rays {k4_ms * 1e6 / n_frame:.4f} / {k4_twin_ms * 1e6 / n_frame:.2f} / "
-          f"{k2_crew_ms * 1e6 / n_frame:.4f} ms | {smi}", flush=True)
+          f"{k2_crew_ms * 1e6 / n_frame:.4f} ms; bound K4 {k4_bound:.4f} ms ({k4_by}; {k4_instr:.4f} ms FMA-free), "
+          f"K2 {k2c_bound:.4f} ms | {smi}", flush=True)
     print(f"[time] K4 {n_frame} sorted unicorn bounce rays: kernel {k4_uni_ms:.4f} ms, K2 {k2_ms:.4f} ms; per 1M "
-          f"rays {k4_uni_ms * 1e6 / n_frame:.4f} / {k2_ms * 1e6 / n_frame:.4f} ms | {smi}", flush=True)
+          f"rays {k4_uni_ms * 1e6 / n_frame:.4f} / {k2_ms * 1e6 / n_frame:.4f} ms; bound K4 {k4u_bound:.4f} ms "
+          f"| {smi}", flush=True)
     for s in SCENES:
         r = Renderer(scenes[s], RenderConfig(), device="cuda")
         for spp in (64, 256):
@@ -628,12 +725,15 @@ def main() -> int:
         print(f"[time] {label} 600x450 {spp}spp: {wall / 1e3:.4f} s, {rays / wall / 1e3:.2f} Mrays/s; breakdown "
               f"wall {wall:.1f} ms = traversal {trav:.1f} ms ({len(spent['trav'])} launches) + K3 {k3:.1f} ms "
               f"({len(spent['K3'])} launches) + glue {wall - trav - k3:.1f} ms | {smi}", flush=True)
+        return len(spent["trav"]), len(spent["K3"])
 
-    breakdown(uni, 16, "flying_unicorn (K2)")
+    per_frame = {"K1": k1_per_frame["cornell_box"]}
+    per_frame["K2"], per_frame["K3"] = breakdown(uni, 16, "flying_unicorn (K2)")
     print(f"[time] flying_unicorn 600x450 16spp: {unicorn_wall:.4f} s, "
           f"{unicorn_rays_n / unicorn_wall / 1e6:.2f} Mrays/s | {smi}", flush=True)
     for variant, label in (("widesmem", "K2"), ("binary", "K4")):
-        with_variant(variant, lambda: breakdown(crew, 16, f"crewmate_phong ({label})"))
+        n_trav, _ = with_variant(variant, lambda: breakdown(crew, 16, f"crewmate_phong ({label})"))
+    per_frame["K4"] = n_trav
     r = Renderer(scenes["cornell_box"], RenderConfig(use_mis=True), device="cuda")
     t0 = time.perf_counter()
     r.render_image(256)
@@ -642,34 +742,41 @@ def main() -> int:
     print(f"[time] cornell_box MIS 600x450 256spp (regen): {wall:.4f} s, {rays / wall / 1e6:.1f} Mrays/s | {smi}",
           flush=True)
 
+    none = "no single PyTorch call computes this function"
     print(json.dumps({"kernels": [
         {
             "name": "mega_kernel", "route": "cuda",
             "source": "raytracer_tpu_torch/ops/csrc/megakernel.cu",
             "replaces": "raytracer_tpu/ops/pallas/megakernel.py:96",
             "launches": launches["K1"], "max_abs_err": max_err,
-            "ms": kernel_ms, "plain_ms": twin_ms,
+            "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+            "library_ms": None, "library": none, "launches_per_frame": per_frame["K1"],
+            "redesigned": REDESIGNED["K1"],
         },
         {
             "name": "bvh8_kernel", "route": "cuda",
             "source": "raytracer_tpu_torch/ops/csrc/bvh8.cu",
             "replaces": "raytracer_tpu/ops/pallas/bvh_kernel.py:159",
             "launches": launches["K2"], "max_abs_err": k2_err,
-            "ms": k2_ms, "plain_ms": k2_twin_ms,
+            "ms": k2_ms, "plain_ms": k2_twin_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+            "library_ms": None, "library": none, "launches_per_frame": per_frame["K2"],
+            "redesigned": REDESIGNED["K2"],
         },
         {
             "name": "key_kernel", "route": "cuda",
             "source": "raytracer_tpu_torch/ops/csrc/coherence_key.cu",
             "replaces": "raytracer_tpu/ops/pallas/key_kernel.py:41",
             "launches": launches["K3"], "max_abs_err": key_err,
-            "ms": k3_ms, "plain_ms": k3_twin_ms,
+            "ms": k3_ms, "plain_ms": k3_twin_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+            "library_ms": None, "library": none, "launches_per_frame": per_frame["K3"],
         },
         {
             "name": "bvh_binary_kernel", "route": "cuda",
             "source": "raytracer_tpu_torch/ops/csrc/bvh_binary.cu",
             "replaces": "raytracer_tpu/ops/pallas/bvh_kernel.py:48",
             "launches": launches["K4"], "max_abs_err": k4_err,
-            "ms": k4_ms, "plain_ms": k4_twin_ms,
+            "ms": k4_ms, "plain_ms": k4_twin_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+            "library_ms": None, "library": none, "launches_per_frame": per_frame["K4"],
         },
     ]}))
     print(smi)

@@ -6,7 +6,8 @@ the port's ``SceneArrays`` from them, so that both packages compute on the
 very same scene. The leaf-triangle table the port keeps is unpacked from
 JAX's ``bvh_tris_packed`` tiles, and the binary node table is packed from
 the tree's five arrays (``ops.bvh.pack_binary_nodes``); the other TPU
-packings are ignored. The mesh-light fields (``light_tri_idx``,
+packings are ignored. The wide node table is checked for K2's leaf layout
+(``ops.bvh.check_leaf_groups``). The mesh-light fields (``light_tri_idx``,
 ``light_tri_cdf``, ``light_area``) are carried as they are.
 """
 
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.models.scene import META_FIELDS, TENSOR_FIELDS, SceneArrays
-from raytracer_tpu_torch.ops.bvh import pack_binary_nodes
+from raytracer_tpu_torch.ops.bvh import check_leaf_groups, pack_binary_nodes
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -46,6 +47,9 @@ def scene_from_numpy(
         host["bvh_binary_nodes"] = (
             pack_binary_nodes(tree) if meta["use_bvh"] else np.zeros((1, 12), np.float32)
         )
+    if meta["use_bvh"]:
+        nodes = np.asarray(host["bvh8_nodes_flat"]).reshape(-1, 8, 8)
+        check_leaf_groups(nodes[..., 6].astype(np.int64), nodes[..., 7].astype(np.int64))
     tensors = {
         k: torch.from_numpy(np.array(host[k], copy=True)).to(dev) for k in TENSOR_FIELDS
     }

@@ -7,8 +7,8 @@ same transform semantics: meshes rotate and scale about their bounding-box
 centre, sphere rotation and plane scale are no-ops, plane rotation turns
 only the normal. Host math is f64; tensors are f32.
 
-``cube`` and ``prism`` expand to triangles through ``raytracer_tpu.models.obj``
-and are brute-forced; ``mesh`` geometry loads an OBJ from
+``cube`` and ``prism`` expand to triangles through the port's ``models/obj.py``
+(a copy of the JAX package's) and are brute-forced; ``mesh`` geometry loads an OBJ from
 ``<scenes_dir>/assets/`` and goes behind one BVH over all mesh triangles
 (``ops/bvh.py``). The triangle batch is the brute-forced prefix, then the
 mesh triangles in the BVH's leaf order with degenerate pads, as in the JAX
@@ -25,8 +25,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from raytracer_tpu.config import SCENE_NAMES
-from raytracer_tpu.models import obj as objlib
+from raytracer_tpu_torch.config import SCENE_NAMES
+from raytracer_tpu_torch.models import obj as objlib
 from raytracer_tpu_torch.models.scene import (
     BRDF_DIFFUSE,
     BRDF_PHONG,

@@ -256,6 +256,15 @@ def treetop_cut(bvh, max_cut: int = MAX_CUT) -> np.ndarray:
     return np.array(sorted(cut), np.int32)
 
 
+def check_leaf_groups(w_child: np.ndarray, w_count: np.ndarray, max_leaf: int = MAX_LEAF) -> None:
+    """Raise unless every leaf slot of the wide nodes starts its own
+    ``max_leaf``-aligned group and holds 1..max_leaf triangles: K2 encodes
+    a leaf by its last row and recovers the group and the count from it."""
+    leaf = w_count > 0
+    if (w_child[leaf] % max_leaf != 0).any() or (w_count[leaf] > max_leaf).any():
+        raise ValueError(f"a BVH8 leaf does not start its own {max_leaf}-row group")
+
+
 def pack_bvh8_nodes(w_lo, w_hi, w_child, w_count) -> np.ndarray:
     """[Nw, 64] f32 node table (ints exact in f32 below 2^24)."""
     n, width = w_lo.shape[:2]
@@ -263,6 +272,7 @@ def pack_bvh8_nodes(w_lo, w_hi, w_child, w_count) -> np.ndarray:
         raise ValueError(f"node width {width} does not fill a 64-float row")
     if (np.abs(w_child) >= 2**24).any():
         raise ValueError("BVH8 child index exceeds the f32-exact integer range")
+    check_leaf_groups(w_child, w_count)
     flat = np.zeros((n, 64), np.float32)
     for s in range(width):
         flat[:, 8 * s : 8 * s + 3] = w_lo[:, s]

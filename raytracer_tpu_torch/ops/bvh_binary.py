@@ -28,7 +28,7 @@ import threading
 
 import torch
 
-from raytracer_tpu.config import Epsilons
+from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
 from raytracer_tpu_torch.ops.bvh import MAX_LEAF
@@ -42,12 +42,15 @@ _launch_lock = threading.Lock()
 
 def bvh_binary_twin(
     scene: SceneArrays, ro, rd, t_init: torch.Tensor, resolved0: torch.Tensor,
-    any_hit: bool, eps: Epsilons,
+    any_hit: bool, eps: Epsilons, visits: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch walk on the rays' device -> (t f32[N], idx i32[N]).
 
     ``idx`` is the global triangle index (``bvh_tri_start`` + leaf row), 0
-    where no triangle was found; not clipped.
+    where no triangle was found; not clipped. ``visits``, when given, is a
+    dict into which the walk adds ``nodes`` (nodes whose box was tested),
+    ``leaves`` (leaves entered), ``tris`` (their real triangles) and
+    ``cand`` (real triangles whose t could still win on entry).
     """
     ro, rd = as3(ro), as3(rd)
     dev = ro[0].device
@@ -65,6 +68,9 @@ def bvh_binary_twin(
         node = torch.where(resolved0.to(torch.bool), n_nodes, node)  # resolved: no walk
     slots = torch.arange(MAX_LEAF, device=dev)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    if visits is not None:
+        for k in ("nodes", "leaves", "tris", "cand"):
+            visits.setdefault(k, 0)
     while True:
         act = node < n_nodes
         if any_hit:
@@ -87,6 +93,10 @@ def bvh_binary_twin(
         hit = (tnear <= tfar) & (tfar > eps.tri_tmin) & (tnear < tb)
         count = nd[:, 7].to(torch.int64)
         leaf = hit & (count > 0)
+        if visits is not None:
+            visits["nodes"] += int(ids.numel())
+            visits["leaves"] += int(leaf.sum())
+            visits["tris"] += int(count[leaf].sum())
         if leaf.any():
             li = ids[leaf]
             first = nd[leaf, 8].to(torch.int64)
@@ -105,6 +115,11 @@ def bvh_binary_twin(
             u = dot(4, ol) + t * dot(4, dl) - f[..., 7]
             v = dot(8, ol) + t * dot(8, dl) - f[..., 11]
             tbl = tb[leaf]
+            if visits is not None:
+                visits["cand"] += int(
+                    ((torch.abs(denom) >= eps.tri_parallel) & (t > eps.tri_tmin)
+                     & (slots[None, :] < cnt[:, None]) & (t < tbl[:, None])).sum()
+                )
             ok = (
                 (torch.abs(denom) >= eps.tri_parallel)
                 & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)

@@ -32,7 +32,7 @@ import threading
 
 import torch
 
-from raytracer_tpu.config import Epsilons
+from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
 from raytracer_tpu_torch.ops.bvh import MAX_LEAF
@@ -44,7 +44,8 @@ INF = 3.0e38
 # RT_BVH_KERNEL values that run K2; any other value runs K4.
 WIDE_VARIANTS = ("wide", "widemxu", "widesmem")
 
-# Stack bound compiled into the kernel (BVH8_MAX_STACK in ops/csrc/bvh8.cu).
+# Largest stack bound the kernel takes (BVH8_MAX_STACK in ops/csrc/bvh8.cu);
+# a launch traps a walk deeper than the scene's bvh8_max_stack.
 BVH8_MAX_STACK = 64
 
 # Kernel against twin on the card (K2 and K4): t bit-equal on at least this
@@ -74,12 +75,17 @@ def _inv_dir(d: torch.Tensor) -> torch.Tensor:
 
 def bvh_traverse_twin(
     scene: SceneArrays, ro, rd, t_init: torch.Tensor, resolved0: torch.Tensor,
-    any_hit: bool, eps: Epsilons,
+    any_hit: bool, eps: Epsilons, visits: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch traversal on the rays' device -> (t f32[N], idx i32[N]).
 
     ``idx`` is the global triangle index (``bvh_tri_start`` + leaf slot), 0
-    where no triangle was found; not clipped.
+    where no triangle was found; not clipped. ``visits``, when given, is a
+    dict into which the walk adds its counts: ``nodes`` (wide nodes
+    visited), ``leaves`` (leaves visited), ``tris`` (the real triangles of
+    the visited leaves, padding not counted) and ``cand`` (triangles whose
+    t could still win when their leaf was entered: the only ones whose u
+    and v the search needs).
     """
     _check_stack(scene)
     ro, rd = as3(ro), as3(rd)
@@ -96,6 +102,10 @@ def bvh_traverse_twin(
     sp = torch.ones(n, dtype=torch.int64, device=dev)  # stack[:, 0] = root
     slots = torch.arange(8, device=dev)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    if visits is not None:
+        for k in ("nodes", "leaves", "tris", "cand"):
+            visits.setdefault(k, 0)
+        group_count = _leaf_group_counts(scene, dev)
     while True:
         act = sp > 0
         if any_hit:
@@ -108,6 +118,10 @@ def bvh_traverse_twin(
         is_leaf = x < 0
 
         li = ids[is_leaf]
+        if visits is not None:
+            visits["nodes"] += int(ids.numel() - li.numel())
+            visits["leaves"] += int(li.numel())
+            visits["tris"] += int(group_count[-x[is_leaf] - 1].sum())
         if li.numel():
             g = -x[is_leaf] - 1
             f = tris[g]  # [L, ml, 12]
@@ -122,6 +136,10 @@ def bvh_traverse_twin(
             u = dot(4, o) + t * dot(4, d) - f[..., 7]
             v = dot(8, o) + t * dot(8, d) - f[..., 11]
             tb = t_best[li]
+            if visits is not None:
+                visits["cand"] += int(
+                    ((torch.abs(denom) >= eps.tri_parallel) & (t > eps.tri_tmin) & (t < tb[:, None])).sum()
+                )
             ok = (
                 (torch.abs(denom) >= eps.tri_parallel)
                 & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
@@ -165,8 +183,18 @@ def bvh_traverse_twin(
     return t_best, i_best
 
 
+def _leaf_group_counts(scene: SceneArrays, dev) -> torch.Tensor:
+    """Real triangles of each leaf group (0 for a group no leaf starts)."""
+    nd = scene.bvh8_nodes_flat.to(dev).view(-1, 8, 8)
+    leaf = nd[..., 7] > 0
+    n_groups = scene.bvh_leaf_tris.shape[0] // MAX_LEAF
+    counts = torch.zeros(n_groups + 1, dtype=torch.int64, device=dev)
+    counts[nd[..., 6][leaf].long() // MAX_LEAF] = nd[..., 7][leaf].long()
+    return counts
+
+
 @functools.lru_cache(maxsize=1)
-def _launch_fn():
+def _lib():
     from raytracer_tpu_torch.ops import _build
 
     lib = _build.load_library("bvh8")
@@ -177,12 +205,12 @@ def _launch_fn():
     fn.argtypes = (
         [ctypes.c_void_p] * 8  # ro.xyz, rd.xyz, t_init, resolved0
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]  # nodes, tris
-        + [ctypes.c_int] * 4  # n, base, max_leaf, any_hit
+        + [ctypes.c_int] * 5  # n, base, max_leaf, any_hit, stack_depth
         + [ctypes.c_float, ctypes.c_float]  # tri_tmin, tri_parallel
         + [ctypes.c_void_p] * 3  # t_out, idx_out, stream
     )
     fn.restype = ctypes.c_int
-    return fn
+    return lib
 
 
 def bvh_traverse_cuda(
@@ -212,14 +240,13 @@ def bvh_traverse_cuda(
     idx_out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return t_out, idx_out
-    launch = _launch_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
+        rc = _lib().rt_bvh8_launch(
             *(c.data_ptr() for c in cols), res.data_ptr(),
             nodes.data_ptr(), nodes.shape[0], tris.data_ptr(), tris.shape[0],
             n, scene.bvh_tri_start, MAX_LEAF, int(any_hit),
-            eps.tri_tmin, eps.tri_parallel,
+            scene.bvh8_max_stack, eps.tri_tmin, eps.tri_parallel,
             t_out.data_ptr(), idx_out.data_ptr(), stream,
         )
     if rc != 0:

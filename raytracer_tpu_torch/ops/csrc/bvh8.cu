@@ -10,27 +10,44 @@
 // stops as soon as it is resolved (resolved0, or some hit below t_init).
 //
 // The Pallas kernel walks the tree with a 1024-ray packet and one shared
-// stack, because Mosaic has no per-lane gathers. On this card per-thread
-// traversal is the idiom: one thread per ray, each with its own stack in
-// local memory (L1-cached), over two tables in device memory:
+// stack, because Mosaic has no per-lane gathers. On this card one thread
+// walks one ray, over two tables in device memory:
 //   nodes [Nw, 64] f32: child slot s at fields 8s..8s+7 =
 //                       (lo.xyz, hi.xyz, child, count), read as float4s;
 //   tris  [F', 12] f32: per leaf-ordered triangle (n_unit.xyz, n_d,
 //                       q1.xyz, q1_a, q2.xyz, q2_a), 3 float4s.
-// Stack entries are a wide-node id (>= 0) or a leaf -(group) - 1. A visited
-// node pushes its hit children ordered by the ray's own entry distance,
-// farthest first, so the nearest child is popped first and earlier hits
-// prune farther subtrees (the Pallas sorting network orders by the packet
-// minimum, which is a packet artefact). Ties keep slot order: the later slot
-// is popped first. Padded leaf slots are all-zero rows: denom = 0 fails the
-// |denom| cutoff, so they never hit.
+// A visited node pushes its hit children ordered by the ray's own entry
+// distance, farthest first, so the nearest child is popped first and earlier
+// hits prune farther subtrees; ties keep slot order (the later slot is
+// popped first).
 //
-// Cost: both tables fit in L2 (flying_unicorn: 58 KB of nodes, 2.1 MB of
-// leaf rows), so the kernel is bound by the per-thread FP32 work of the leaf
-// tests (64 triangles x ~25 flops per leaf visit) and by divergence: a warp's
-// threads walk different paths and the warp runs until its longest walk
-// ends. This first version is simple on purpose: no ray sorting inside the
-// kernel, no shared-memory node cache, no wgmma.
+// Cost: the tables fit in L2 (flying_unicorn: 58 KB of nodes, 2.1 MB of
+// leaf rows) and a ray moves 37 bytes, so device memory does not bound it.
+// The walk is a chain of dependent loads per thread, so the latency of
+// those loads, and how many warps the SM holds to hide it, bound it; so
+// does divergence (a warp runs until its longest walk ends). The design,
+// each step timed on the card against its alternative:
+// - The stack and the children's insertion keys are per-thread arrays,
+//   indexed at run time, so they live in local memory, which L1 caches. A
+//   hit child is inserted into the node's run of stack entries by its entry
+//   distance (stable), so the walk, t and index equal the twin's. (Keeping
+//   them in shared memory instead, one column per thread, removes the local
+//   traffic but reserves 19 KB a block of the SM's memory that L1 would use
+//   for the leaf rows; a fixed sorting network over the eight children in
+//   registers orders them the same way but keeps 24 more values live.)
+// - A leaf tests its real triangles only. The stack entry of a leaf is
+//   -(first + count - 1) - 1, its last row; each leaf starts its own
+//   max_leaf-aligned group (checked on the host), so the group is
+//   last / max_leaf and the count last % max_leaf + 1. Padded rows never
+//   hit, so skipping them changes nothing.
+// - A triangle's three rows are loaded together and u, v computed for every
+//   real triangle, the hit test predicated (computing them only for a t
+//   that could still win branches the warp).
+// - The node table is read from device memory through the read-only cache.
+//   (A copy in each block's shared memory takes the carve-out from L1, and
+//   on the unicorn, 58 KB a block, cuts the resident blocks.)
+// raytracer_tpu_torch/tools/kernel_steps.py builds each alternative named
+// in brackets and times it against this kernel on the card.
 //
 // Numerics: the leaf and slab expressions are the Pallas kernel's
 // (bvh_kernel.py:308-341, :369-374), evaluated left to right without FMA
@@ -40,24 +57,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Stack bound compiled into the kernel; the wrapper raises when a scene's
-// bvh8_max_stack exceeds it (flying_unicorn needs 29).
+// Largest stack bound a launch accepts; the wrapper raises when a scene's
+// bvh8_max_stack exceeds it.
 #define BVH8_MAX_STACK 64
+#define BVH8_BLOCK 128
 
 struct TravParams {
-  int n, n_nodes, n_groups, base, max_leaf, any_hit;
+  int n, n_nodes, n_groups, base, max_leaf, any_hit, stack_depth;
   float tri_tmin, tri_parallel;
 };
 
-__global__ void __launch_bounds__(128) bvh8_kernel(
-    const __grid_constant__ TravParams p, const float* __restrict__ rox,
-    const float* __restrict__ roy, const float* __restrict__ roz, const float* __restrict__ rdx,
-    const float* __restrict__ rdy, const float* __restrict__ rdz,
-    const float* __restrict__ t_init, const uint8_t* __restrict__ resolved0,
-    const float4* __restrict__ nodes, const float4* __restrict__ tris, float* __restrict__ t_out,
-    int32_t* __restrict__ idx_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
+// Walk ray i.
+__device__ __forceinline__ void walk(
+    const TravParams& p, int i, const float* __restrict__ rox, const float* __restrict__ roy,
+    const float* __restrict__ roz, const float* __restrict__ rdx, const float* __restrict__ rdy,
+    const float* __restrict__ rdz, const float* __restrict__ t_init,
+    const uint8_t* __restrict__ resolved0, const float4* __restrict__ nodes,
+    const float4* __restrict__ tris, float* __restrict__ t_out, int32_t* __restrict__ idx_out) {
   const float ox = rox[i], oy = roy[i], oz = roz[i];
   const float dx = rdx[i], dy = rdy[i], dz = rdz[i];
   const float ix = 1.0f / (fabsf(dx) < 1e-12f ? 1e-12f : dx);
@@ -66,27 +82,32 @@ __global__ void __launch_bounds__(128) bvh8_kernel(
   const float tinit = t_init[i];
   const bool res0 = resolved0[i] != 0;
 
+  int stk[BVH8_MAX_STACK];  // the stack, top at sp - 1
+  float keys[8];            // entry distances of the children being pushed
   float t_best = tinit;
   int i_best = 0;
-  int stack[BVH8_MAX_STACK];
-  int sp = 0;
-  stack[sp++] = 0;  // the root wide node
+  stk[0] = 0;  // the root wide node
+  int sp = 1;
   while (sp > 0) {
     if (p.any_hit && (res0 || t_best < tinit)) break;
-    const int x = stack[--sp];
+    const int x = stk[--sp];
     if (x < 0) {
-      // Leaf group g: max_leaf triangle rows.
-      const int g = -x - 1;
+      // Leaf: rows first .. last of group last / max_leaf.
+      const int last = -x - 1;
+      const int g = last / p.max_leaf;
       if (g >= p.n_groups) continue;
       const int first = g * p.max_leaf;
       const float4* tri = tris + (size_t)first * 3;
-      for (int j = 0; j < p.max_leaf; ++j) {
-        const float4 a = tri[3 * j], b = tri[3 * j + 1], c = tri[3 * j + 2];
+      for (int j = 0; j <= last - first; ++j) {
+        const float4 a = __ldg(tri + 3 * j), b = __ldg(tri + 3 * j + 1),
+                     c = __ldg(tri + 3 * j + 2);
         const float denom = a.x * dx + a.y * dy + a.z * dz;
         const float n_ro = a.x * ox + a.y * oy + a.z * oz;
         const float t = (a.w - n_ro) / denom;
-        const float u = (b.x * ox + b.y * oy + b.z * oz) + t * (b.x * dx + b.y * dy + b.z * dz) - b.w;
-        const float v = (c.x * ox + c.y * oy + c.z * oz) + t * (c.x * dx + c.y * dy + c.z * dz) - c.w;
+        const float u =
+            (b.x * ox + b.y * oy + b.z * oz) + t * (b.x * dx + b.y * dy + b.z * dz) - b.w;
+        const float v =
+            (c.x * ox + c.y * oy + c.z * oz) + t * (c.x * dx + c.y * dy + c.z * dz) - c.w;
         if (fabsf(denom) >= p.tri_parallel && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
             t > p.tri_tmin && t < t_best) {
           t_best = t;
@@ -96,13 +117,13 @@ __global__ void __launch_bounds__(128) bvh8_kernel(
     } else {
       if (x >= p.n_nodes) continue;
       const float4* nd = nodes + (size_t)x * 16;
-      float key[8];
-      int val[8];
-      int h = 0;
+      int h = 0;  // children pushed: stk[sp] .. stk[sp + h - 1], keys descending
+#pragma unroll 1
       for (int s = 0; s < 8; ++s) {
-        const float4 a = nd[2 * s], b = nd[2 * s + 1];  // lo.xyz hi.x | hi.yz child count
+        // lo.xyz hi.x | hi.yz child count
+        const float4 a = __ldg(nd + 2 * s);
+        const float4 b = __ldg(nd + 2 * s + 1);
         const int cnt = (int)b.w;
-        if (cnt == 0) continue;  // empty slot
         float t0 = (a.x - ox) * ix, t1 = (a.w - ox) * ix;
         float tnear = fminf(t0, t1), tfar = fmaxf(t0, t1);
         t0 = (a.y - oy) * iy;
@@ -113,41 +134,54 @@ __global__ void __launch_bounds__(128) bvh8_kernel(
         t1 = (b.y - oz) * iz;
         tnear = fmaxf(tnear, fminf(t0, t1));
         tfar = fminf(tfar, fmaxf(t0, t1));
-        if (!(tnear <= tfar && tfar > p.tri_tmin && tnear < t_best)) continue;
+        if (!(cnt != 0 && tnear <= tfar && tfar > p.tri_tmin && tnear < t_best)) continue;
+        // The wrapper sizes the stack by the scene's bvh8_max_stack
+        // (7 * depth + 1, which bounds this walk). A walk past it means
+        // that bound is wrong: fail the launch rather than drop children.
+        if (sp + h >= p.stack_depth) __trap();
         const int child = (int)b.z;
-        const int pv = cnt > 0 ? -(child / p.max_leaf) - 1 : child;
-        // Insert into the list kept in descending entry distance; an equal
-        // key goes after the ones already there (stable).
+        // Insert after the entries of a larger or equal key (stable).
         int q = h++;
-        while (q > 0 && key[q - 1] < tnear) {
-          key[q] = key[q - 1];
-          val[q] = val[q - 1];
+        while (q > 0 && keys[q - 1] < tnear) {
+          keys[q] = keys[q - 1];
+          stk[sp + q] = stk[sp + q - 1];
           --q;
         }
-        key[q] = tnear;
-        val[q] = pv;
+        keys[q] = tnear;
+        stk[sp + q] = cnt > 0 ? -(child + cnt - 1) - 1 : child;
       }
-      // The wrapper only launches scenes with bvh8_max_stack (7 * depth + 1,
-      // which bounds this walk) <= BVH8_MAX_STACK. A walk past it means that
-      // bound is wrong: fail the launch rather than drop children.
-      if (sp + h > BVH8_MAX_STACK) __trap();
-      for (int q = 0; q < h; ++q) stack[sp++] = val[q];
+      sp += h;
     }
   }
   t_out[i] = t_best;
   idx_out[i] = i_best;
 }
 
+// One thread walks one ray.
+__global__ void __launch_bounds__(BVH8_BLOCK, 1) bvh8_kernel(
+    const __grid_constant__ TravParams p, const float* __restrict__ rox,
+    const float* __restrict__ roy, const float* __restrict__ roz, const float* __restrict__ rdx,
+    const float* __restrict__ rdy, const float* __restrict__ rdz,
+    const float* __restrict__ t_init, const uint8_t* __restrict__ resolved0,
+    const float4* __restrict__ nodes, const float4* __restrict__ tris, float* __restrict__ t_out,
+    int32_t* __restrict__ idx_out) {
+  const int i = blockIdx.x * BVH8_BLOCK + threadIdx.x;
+  if (i < p.n) walk(p, i, rox, roy, roz, rdx, rdy, rdz, t_init, resolved0, nodes, tris, t_out, idx_out);
+}
+
 extern "C" int rt_bvh8_max_stack() { return BVH8_MAX_STACK; }
 
 // All pointers are device pointers; resolved0 is one byte per ray (0 or 1).
+// stack_depth is the scene's stack bound (<= BVH8_MAX_STACK).
 extern "C" int rt_bvh8_launch(const float* rox, const float* roy, const float* roz,
                               const float* rdx, const float* rdy, const float* rdz,
                               const float* t_init, const uint8_t* resolved0, const float* nodes,
                               int n_nodes, const float* tris, int n_tri_rows, int n, int base,
-                              int max_leaf, int any_hit, float tri_tmin, float tri_parallel,
-                              float* t_out, int32_t* idx_out, void* stream) {
-  if (n < 0 || max_leaf <= 0 || n_tri_rows % max_leaf != 0) return (int)cudaErrorInvalidValue;
+                              int max_leaf, int any_hit, int stack_depth, float tri_tmin,
+                              float tri_parallel, float* t_out, int32_t* idx_out, void* stream) {
+  if (n < 0 || max_leaf <= 0 || n_tri_rows % max_leaf != 0 || stack_depth < 1 ||
+      stack_depth > BVH8_MAX_STACK)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   TravParams p;
   p.n = n;
@@ -156,11 +190,11 @@ extern "C" int rt_bvh8_launch(const float* rox, const float* roy, const float* r
   p.base = base;
   p.max_leaf = max_leaf;
   p.any_hit = any_hit;
+  p.stack_depth = stack_depth;
   p.tri_tmin = tri_tmin;
   p.tri_parallel = tri_parallel;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  bvh8_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n + BVH8_BLOCK - 1) / BVH8_BLOCK;
+  bvh8_kernel<<<blocks, BVH8_BLOCK, 0, (cudaStream_t)stream>>>(
       p, rox, roy, roz, rdx, rdy, rdz, t_init, resolved0, (const float4*)nodes,
       (const float4*)tris, t_out, idx_out);
   return (int)cudaGetLastError();

@@ -1,5 +1,5 @@
 // Bounce megakernel for Hopper (sm_90a): the whole per-lane path-trace loop
-// of one row band in one kernel.
+// of one or several row bands in one kernel.
 //
 // Replaces raytracer_tpu/ops/pallas/megakernel.py::_mega_kernel (K1). It
 // computes what that kernel computes, lane for lane, and not its layout:
@@ -15,17 +15,29 @@
 //   as in the JAX kernel's interpret mode (the TPU build uses the TPU's
 //   hardware generator, which this card does not have).
 // - The scene table pf (a few hundred f32: camera, light, spheres, planes,
-//   <=32 triangles, materials) is a by-value kernel argument marked
-//   __grid_constant__, so it lives in the constant bank and every thread
-//   reads it through the constant cache (warp-uniform reads broadcast); the
-//   primitive loops are runtime loops, not unrolled.
+//   <=32 triangles, materials) is a by-value __grid_constant__ argument, so
+//   it lives in the constant bank. The primitive loops read it there: their
+//   index is the same in every lane of a warp, so each read is a broadcast
+//   and an operand of the arithmetic instruction itself, with no load. The
+//   material rows are the one divergent read (the lanes of a warp hit
+//   different objects), which the constant cache serves once per distinct
+//   address; each block copies them into shared memory at its start, which
+//   serves a warp in one access (a bank conflict at worst). Staging the
+//   whole table in shared memory instead makes every uniform read a load:
+//   slower on cornell_box, faster on cubes (raytracer_tpu_torch/tools/
+//   kernel_steps.py times this and each choice below against its
+//   alternative on the card).
+// - Several bands in one launch: lane g belongs to band g / n_band, whose
+//   (y0, seed) the band table gives, and keeps its slot g % n_band, so
+//   every draw and every pixel equals the one-band launch's. A 600x450
+//   frame is 1.08M lanes in one launch instead of nine 120,000-lane ones
+//   (938 blocks, less than one wave of the card's 132 SMs).
 //
 // Cost: the kernel reads a few hundred scalars and writes 16 bytes per lane,
 // so device memory does not bound it. Per-thread FP32 and SFU work (sqrt,
 // division, sin/cos) bounds it, and so does divergence: the threads of a
 // warp run until the warp's longest path ends, and Russian roulette makes
-// path lengths vary. This first version is simple on purpose: no sorting or
-// compaction of lanes, no persistent threads.
+// path lengths vary. No sorting or compaction of lanes.
 //
 // Numerics: no fast math; sqrtf, division, sinf and cosf are the accurate
 // IEEE forms, and normalization multiplies by 1/sqrtf (not rsqrtf). The
@@ -75,9 +87,9 @@ __device__ __forceinline__ float uniform(uint32_t lane_seed, uint32_t it, uint32
   return (float)(hash3(lane_seed, it, draw) >> 8) * (1.0f / 16777216.0f);
 }
 
-// Capacity of the by-value scene table: with Params and the two output
-// pointers it stays under the classic 4 KB kernel-argument limit. cornell_box
-// needs 167 floats, cubes 469.
+// Capacity of the by-value scene table: with Params and the pointers it
+// stays under the classic 4 KB kernel-argument limit. cornell_box needs 167
+// floats, cubes 469.
 #define MEGA_PF_MAX 960
 
 struct SceneTable {
@@ -85,8 +97,7 @@ struct SceneTable {
 };
 
 struct Params {
-  int ns, np, nt, no, width, height, y0, num_samples, n_valid;
-  uint32_t seed;
+  int ns, np, nt, no, width, height, num_samples, n_band, n_valid;
   int rr_start_depth;
   float rr_survival;
   int max_depth;
@@ -134,7 +145,7 @@ __device__ __forceinline__ bool tri_t(const float* s, V3 ro, V3 rd, float parall
 // Nearest hit: returns false on a miss; else the object, the two-sided
 // normal and the hit position (offset along the normal for non-spheres).
 // Ties go to the earlier primitive, spheres before planes before triangles.
-__device__ bool trace(const float* pf, const Layout& lay, const Params& p, V3 ro, V3 rd,
+__device__ __forceinline__ bool trace(const float* pf, const Layout& lay, const Params& p, V3 ro, V3 rd,
                       int* obj, V3* n_out, V3* pos_out) {
   float t_best = INF_F;
   V3 v = mk(0.f, 0.f, 0.f);
@@ -194,7 +205,7 @@ __device__ bool trace(const float* pf, const Layout& lay, const Params& p, V3 ro
 }
 
 // Any hit strictly below `bound` (the result is an OR, so stop at the first).
-__device__ bool occluded(const float* pf, const Layout& lay, const Params& p, V3 ro, V3 rd,
+__device__ __forceinline__ bool occluded(const float* pf, const Layout& lay, const Params& p, V3 ro, V3 rd,
                          float bound) {
   for (int s = 0; s < p.ns; ++s) {
     float det;
@@ -213,28 +224,40 @@ __device__ bool occluded(const float* pf, const Layout& lay, const Params& p, V3
   return false;
 }
 
-__global__ void __launch_bounds__(128) mega_kernel(const __grid_constant__ SceneTable tab,
-                                                   const __grid_constant__ Params p,
-                                                   float* __restrict__ acc_out,
-                                                   int* __restrict__ rays_out) {
-  const float* pf = tab.v;
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= p.n_valid) return;
+#define MEGA_BLOCK 128
 
+// At least 8 resident blocks per SM caps the registers at 64 a thread (half
+// the card's thread slots resident), which ptxas meets without spills and
+// which runs the cornell_box frame faster than the compiler's own choice of
+// 69. (The 32-byte stack frame ptxas reports is sinf/cosf's scratch for
+// arguments past 1e5, which these never reach.)
+__global__ void __launch_bounds__(MEGA_BLOCK, 8)
+    mega_kernel(const __grid_constant__ SceneTable tab, const __grid_constant__ Params p,
+                const int2* __restrict__ bands, float* __restrict__ acc_out,
+                int* __restrict__ rays_out) {
+  const float* pf = tab.v;
   Layout lay;
   lay.sph = 20;
   lay.pln = lay.sph + 5 * p.ns;
   lay.tri = lay.pln + 7 * p.np;
   lay.mat = lay.tri + 13 * p.nt;
+  __shared__ float mats[MEGA_PF_MAX];
+  for (int k = threadIdx.x; k < 10 * p.no; k += MEGA_BLOCK) mats[k] = pf[lay.mat + k];
+  __syncthreads();
+  const int g = blockIdx.x * MEGA_BLOCK + threadIdx.x;
+  if (g >= p.n_valid) return;
+  const int band = g / p.n_band;
+  const int slot = g - band * p.n_band;
+  const int2 bd = bands[band];  // (y0, seed)
 
   const V3 cam_pos = ld3(pf + 0), cam_dir = ld3(pf + 3), cx = ld3(pf + 6), cy = ld3(pf + 9);
   const V3 light_pos = ld3(pf + 12), light_e = ld3(pf + 16);
   const float light_r = pf[15], light_area = pf[19];
 
-  const uint32_t lane_seed = (uint32_t)slot ^ p.seed;
+  const uint32_t lane_seed = (uint32_t)slot ^ (uint32_t)bd.y;
   const int pix = slot / 4, sub = slot % 4;
   const float px = (float)(pix % p.width);
-  const float py = (float)(p.y0 + pix / p.width);
+  const float py = (float)(bd.x + pix / p.width);
   const float sx = (float)(sub % 2), sy = (float)(sub / 2);
   const float fw = (float)p.width, fh = (float)p.height;
   const int hard_cap = p.num_samples * (p.max_depth + 2) + 64;
@@ -272,7 +295,7 @@ __global__ void __launch_bounds__(128) mega_kernel(const __grid_constant__ Scene
     depth += 1;
     bool live = false;
     if (valid) {
-      const float* m = pf + lay.mat + 10 * obj;  // is_spec, f_d[3], c_s[3], em[3]
+      const float* m = mats + 10 * obj;  // is_spec, f_d[3], c_s[3], em[3]
       // 3) arrival emission
       L = add3(L, mul3(emis, ld3(m + 7)));
       V3 o = scale3(rd, -1.0f);
@@ -342,21 +365,27 @@ __global__ void __launch_bounds__(128) mega_kernel(const __grid_constant__ Scene
     active = live;
     if (!live && j >= p.num_samples) break;
   }
-  acc_out[3 * slot + 0] = acc.x;
-  acc_out[3 * slot + 1] = acc.y;
-  acc_out[3 * slot + 2] = acc.z;
-  rays_out[slot] = rays;
+  acc_out[3 * g + 0] = acc.x;
+  acc_out[3 * g + 1] = acc.y;
+  acc_out[3 * g + 2] = acc.z;
+  rays_out[g] = rays;
 }
 
 // pf is a HOST pointer to n_pf floats; it is copied into the launch's
-// argument buffer, so the caller may free it as soon as this returns.
+// argument buffer, so the caller may free it as soon as this returns. bands
+// is a DEVICE array of n_bands (y0, seed) pairs; lane g of the launch is
+// slot g % n_band of band g / n_band, and acc/rays hold n_bands * n_band
+// lanes.
 extern "C" int rt_mega_launch(const float* pf, int n_pf, int ns, int np, int nt, int no, int width,
-                              int height, int y0, int num_samples, int n_valid, uint32_t seed,
-                              int rr_start_depth, float rr_survival, int max_depth,
-                              float sphere_tmin, float plane_parallel, float hit_offset,
-                              float visibility_margin, float tri_tmin, float tri_parallel,
-                              float* acc, int* rays, void* stream) {
-  if (n_pf < 0 || n_pf > MEGA_PF_MAX) return (int)cudaErrorInvalidValue;
+                              int height, const int* bands, int n_bands, int n_band,
+                              int num_samples, int rr_start_depth, float rr_survival,
+                              int max_depth, float sphere_tmin, float plane_parallel,
+                              float hit_offset, float visibility_margin, float tri_tmin,
+                              float tri_parallel, float* acc, int* rays, void* stream) {
+  if (n_pf < 0 || n_pf > MEGA_PF_MAX || n_pf != 20 + 5 * ns + 7 * np + 13 * nt + 10 * no ||
+      n_bands < 0 || n_band < 0 ||
+      (long)n_bands * n_band > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
   SceneTable tab = {};
   for (int i = 0; i < n_pf; ++i) tab.v[i] = pf[i];
   Params p;
@@ -366,10 +395,9 @@ extern "C" int rt_mega_launch(const float* pf, int n_pf, int ns, int np, int nt,
   p.no = no;
   p.width = width;
   p.height = height;
-  p.y0 = y0;
   p.num_samples = num_samples;
-  p.n_valid = n_valid;
-  p.seed = seed;
+  p.n_band = n_band;
+  p.n_valid = n_bands * n_band;
   p.rr_start_depth = rr_start_depth;
   p.rr_survival = rr_survival;
   p.max_depth = max_depth;
@@ -379,8 +407,9 @@ extern "C" int rt_mega_launch(const float* pf, int n_pf, int ns, int np, int nt,
   p.visibility_margin = visibility_margin;
   p.tri_tmin = tri_tmin;
   p.tri_parallel = tri_parallel;
-  const int threads = 128;
-  const int blocks = (n_valid + threads - 1) / threads;
-  mega_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(tab, p, acc, rays);
+  if (p.n_valid == 0) return 0;
+  const int blocks = (p.n_valid + MEGA_BLOCK - 1) / MEGA_BLOCK;
+  cudaStream_t s = (cudaStream_t)stream;
+  mega_kernel<<<blocks, MEGA_BLOCK, 0, s>>>(tab, p, (const int2*)bands, acc, rays);
   return (int)cudaGetLastError();
 }

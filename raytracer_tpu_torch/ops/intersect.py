@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from raytracer_tpu.config import Epsilons
+from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu_torch.models import vecmath as vm
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.ops.bvh_traverse import bvh_intersect

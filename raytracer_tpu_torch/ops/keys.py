@@ -27,7 +27,7 @@ import weakref
 
 import torch
 
-from raytracer_tpu.config import Epsilons
+from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
 

@@ -12,12 +12,16 @@ Three parts, as in the JAX module:
 - the host packing (``pack_params``): the ``pf`` f32 scalar table in the
   JAX order, ``n_valid = rows*W*4``, the band seed and ``cfg_tuple``;
 - the CUDA kernel (``ops/csrc/megakernel.cu``), one thread per lane, built
-  at first use (``ops/_build.py``) and counted in ``LAUNCHES``;
+  at first use (``ops/_build.py``) and counted in ``LAUNCHES``; one launch
+  renders one band or several (``mega_cuda_bands``), each lane keeping the
+  slot and seed of its band;
 - the plain PyTorch twin (``mega_twin``), which steps every lane in
   lockstep with the same expressions as the kernel.
 
-``render_band_mega`` runs the twin for CPU tensors and the kernel for CUDA
-tensors; on CUDA it launches the kernel or raises, it never falls back.
+``render_bands_mega`` (several bands of equal height, in one launch: the
+frame path) and ``render_band_mega`` (one band: the served path) run the
+twin for CPU tensors and the kernel for CUDA tensors; on CUDA they launch
+the kernel or raise, they never fall back.
 
 Random numbers come from the counter hash ``hash3``/``uniform`` over
 (lane ^ seed, iteration, draw), draws 0-6 as in the JAX kernel. The TPU
@@ -36,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.camera import camera_basis, tent_jitter
 from raytracer_tpu_torch.models.scene import BRDF_SPECULAR, LIGHT_SPHERE, SceneArrays
 from raytracer_tpu_torch.models.vecmath import (
@@ -196,15 +200,18 @@ def pack_params(scene: SceneArrays, cfg: RenderConfig) -> tuple[torch.Tensor, Me
 
 def mega_twin(
     pf: torch.Tensor, static: MegaStatic, y0: int, num_samples: int, n_valid: int,
-    seed: int, device: torch.device | str = "cpu",
+    seed: int, device: torch.device | str = "cpu", counts: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel, computed on ``device``.
+    """Plain PyTorch version of the kernel for one band, computed on
+    ``device``.
 
     Steps all ``n_valid`` lanes in lockstep, one loop iteration per kernel
     iteration, until no lane has work or ``hard_cap`` iterations ran. A lane
     without work changes no state, so each lane sees the same iteration
     numbers (and random draws) as in the kernel's per-thread loop.
-    Returns (acc f32[n_valid, 3], rays i32[n_valid]).
+    Returns (acc f32[n_valid, 3], rays i32[n_valid]). ``counts``, when
+    given, is a dict into which the loop adds ``samples`` (camera rays),
+    ``bounces`` (main traces) and ``shadow`` (shadow rays).
     """
     ns, npl, nt, no, width, height, ct = static
     (_fov, rr_start_depth, rr_survival, max_depth, sphere_tmin, plane_parallel,
@@ -358,6 +365,9 @@ def mega_twin(
 
         # 2) main trace
         rays = rays + active.to(i32)
+        if counts is not None:
+            counts["samples"] = counts.get("samples", 0) + int(got.sum())
+            counts["bounces"] = counts.get("bounces", 0) + int(active.sum())
         obj, nrm, x, hit_valid = trace(ro, rd)
         valid = active & hit_valid
         done_miss = active & ~hit_valid
@@ -385,6 +395,8 @@ def mega_twin(
         r2 = torch.clamp_min(dist * dist, 1e-20)
         nee = valid & ~is_spec
         rays = rays + nee.to(i32)
+        if counts is not None:
+            counts["shadow"] = counts.get("shadow", 0) + int(nee.sum())
         occ = occluded(x, wi_d, dist - visibility_margin)
         cos_x = dot3(nrm, wi_d)
         cos_y = dot3(ny, scale3(wi_d, -1.0))
@@ -443,8 +455,8 @@ def _launch_fn():
     fn = _build.load_library("megakernel").rt_mega_launch
     fn.argtypes = (
         [ctypes.c_void_p]  # pf
-        + [ctypes.c_int] * 10  # n_pf, ns, np, nt, no, width, height, y0, num_samples, n_valid
-        + [ctypes.c_uint32]  # seed
+        + [ctypes.c_int] * 7  # n_pf, ns, np, nt, no, width, height
+        + [ctypes.c_void_p] + [ctypes.c_int] * 3  # bands, n_bands, n_band, num_samples
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int]  # rr_start_depth, rr_survival, max_depth
         + [ctypes.c_float] * 6  # epsilons
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # acc, rays, stream
@@ -453,21 +465,29 @@ def _launch_fn():
     return fn
 
 
-def mega_cuda(
-    pf: torch.Tensor, static: MegaStatic, y0: int, num_samples: int, n_valid: int,
-    seed: int, device: torch.device | str = "cuda",
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on ``device`` and its current stream.
+def _i32(v: int) -> int:
+    v &= M32
+    return v - (1 << 32) if v >= 1 << 31 else v
 
-    ``pf`` is the host table from ``pack_params``. Returns (acc f32[n_valid, 3],
-    rays i32[n_valid]) on ``device``; raises on any fault, never falls back.
+
+def mega_cuda_bands(
+    pf: torch.Tensor, static: MegaStatic, bands: list[tuple[int, int]], num_samples: int,
+    n_band: int, device: torch.device | str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel once for ``bands``, a list of (y0, seed) of
+    bands of ``n_band`` lanes each, on ``device`` and its current stream.
+
+    ``pf`` is the host table from ``pack_params``. Returns (acc
+    f32[len(bands) * n_band, 3], rays i32[len(bands) * n_band]) on
+    ``device``, band after band; lane ``b * n_band + s`` equals lane ``s`` of
+    band ``b`` launched alone. Raises on any fault, never falls back.
     """
     global LAUNCHES
     dev = torch.device(device)
     if dev.type != "cuda":
-        raise ValueError(f"mega_cuda launches on a CUDA device, not {dev}")
+        raise ValueError(f"mega_cuda_bands launches on a CUDA device, not {dev}")
     if pf.device.type != "cpu" or pf.dtype != torch.float32 or not pf.is_contiguous():
-        raise ValueError("mega_cuda needs the contiguous f32 host table of pack_params")
+        raise ValueError("mega_cuda_bands needs the contiguous f32 host table of pack_params")
     if pf.numel() > MEGA_PF_MAX:
         raise ValueError(
             f"scene table of {pf.numel()} floats exceeds the kernel's {MEGA_PF_MAX}"
@@ -475,22 +495,28 @@ def mega_cuda(
     ns, npl, nt, no, width, height, ct = static
     if nt > MEGA_MAX_TRIS:
         raise ValueError(f"{nt} triangles exceed MEGA_MAX_TRIS={MEGA_MAX_TRIS}")
+    if n_band % 4 or len(bands) * n_band >= 1 << 31:
+        raise ValueError(f"{len(bands)} bands of {n_band} lanes: not whole pixels or too many")
     (_fov, rr_start_depth, rr_survival, max_depth, sphere_tmin, plane_parallel,
      hit_offset, visibility_margin, tri_tmin, tri_parallel) = ct
-    launch = _launch_fn()
-    acc = torch.empty((n_valid, 3), dtype=torch.float32, device=dev)
-    rays = torch.empty((n_valid,), dtype=torch.int32, device=dev)
-    if n_valid == 0:
+    n = len(bands) * n_band
+    acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rays = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
         return acc, rays
+    launch = _launch_fn()
+    # The band table goes to the card from pinned memory, queued on the
+    # launch's stream (no synchronous pageable copy per launch).
+    table = torch.tensor([(_i32(y0), _i32(seed)) for y0, seed in bands], dtype=torch.int32)
     with torch.cuda.device(dev):
+        table = table.pin_memory().to(dev, non_blocking=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
             pf.data_ptr(), pf.numel(), ns, npl, nt, no, width, height,
-            y0, num_samples, n_valid, seed & M32,
+            table.data_ptr(), len(bands), n_band, num_samples,
             rr_start_depth, rr_survival, max_depth,
             sphere_tmin, plane_parallel, hit_offset, visibility_margin,
-            tri_tmin, tri_parallel,
-            acc.data_ptr(), rays.data_ptr(), stream,
+            tri_tmin, tri_parallel, acc.data_ptr(), rays.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed with CUDA error {rc}")
@@ -499,27 +525,52 @@ def mega_cuda(
     return acc, rays
 
 
-# --- band entry point --------------------------------------------------------
+def mega_cuda(
+    pf: torch.Tensor, static: MegaStatic, y0: int, num_samples: int, n_valid: int,
+    seed: int, device: torch.device | str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One band of ``n_valid`` lanes through ``mega_cuda_bands``: the kernel
+    with the arguments of ``mega_twin``."""
+    return mega_cuda_bands(pf, static, [(y0, seed)], num_samples, n_valid, device)
+
+
+# --- band entry points ---------------------------------------------------------
+
+
+def render_bands_mega(
+    scene: SceneArrays, cfg: RenderConfig, y0s: list[int], rows: int, num_samples: int,
+    seeds: list[int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Render the bands of ``rows`` rows starting at render rows ``y0s``,
+    band ``b`` at seed ``seeds[b]`` -> (sums f32[len(y0s), rows, W, 4, 3],
+    rays traced i64 scalar), both on the scene's device.
+
+    CPU scene: the plain twin, band by band. CUDA scene: one launch of the
+    CUDA kernel for all the bands, or an error.
+    """
+    if not supports_megakernel(scene, cfg):
+        raise ValueError(f"scene {scene.name!r} is outside the megakernel subset")
+    if len(seeds) != len(y0s):
+        raise ValueError(f"{len(y0s)} bands but {len(seeds)} seeds")
+    pf, static = pack_params(scene, cfg)
+    n = rows * cfg.width * 4
+    dev = scene.device
+    if dev.type == "cpu":
+        outs = [mega_twin(pf, static, y0, num_samples, n, seed, dev) for y0, seed in zip(y0s, seeds)]
+        acc = torch.cat([o[0] for o in outs]) if outs else torch.empty((0, 3))
+        rays = torch.cat([o[1] for o in outs]) if outs else torch.empty((0,), dtype=torch.int32)
+    elif dev.type == "cuda":
+        acc, rays = mega_cuda_bands(pf, static, list(zip(y0s, seeds)), num_samples, n, dev)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return acc.view(len(y0s), rows, cfg.width, 4, 3), rays.sum()
 
 
 def render_band_mega(
     scene: SceneArrays, cfg: RenderConfig, y0: int, rows: int, num_samples: int,
     seed: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Render a row band -> (sums f32[rows, W, 4, 3], rays traced i64 scalar),
-    both on the scene's device.
-
-    CPU scene: the plain twin. CUDA scene: the CUDA kernel, or an error.
-    """
-    if not supports_megakernel(scene, cfg):
-        raise ValueError(f"scene {scene.name!r} is outside the megakernel subset")
-    pf, static = pack_params(scene, cfg)
-    n = rows * cfg.width * 4
-    dev = scene.device
-    if dev.type == "cpu":
-        acc, rays = mega_twin(pf, static, y0, num_samples, n, seed, dev)
-    elif dev.type == "cuda":
-        acc, rays = mega_cuda(pf, static, y0, num_samples, n, seed, dev)
-    else:
-        raise ValueError(f"unsupported device {dev}")
-    return acc.view(rows, cfg.width, 4, 3), rays.sum()
+    """Render one row band -> (sums f32[rows, W, 4, 3], rays traced i64
+    scalar), both on the scene's device: ``render_bands_mega`` of one band."""
+    sums, rays = render_bands_mega(scene, cfg, [y0], rows, num_samples, [seed])
+    return sums[0], rays

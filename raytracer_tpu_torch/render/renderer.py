@@ -9,7 +9,7 @@ takes bands of ``cfg.mesh_rays_per_pass`` lanes, one dispatch per sample,
 summed on the device, and serves in at least ``DELIVERY_BANDS`` bands.
 
 Two engines (``select_band_engine``): the bounce megakernel
-(``ops.megakernel.render_band_mega``, K1) and the streaming regen engine
+(``ops.megakernel``, K1) and the streaming regen engine
 (``render.wavefront.render_band_regen``, with K3 and the BVH traversal, K2
 or K4, on BVH scenes). A scene on the GPU runs the CUDA kernels, a scene
 on the CPU their plain PyTorch twins. The megakernel's 32-bit band seed is
@@ -17,7 +17,10 @@ derived from ``(cfg.seed, y0, salt)`` with the kernel's counter hash (the
 JAX package folds y0 and the salt into a ``jax.random`` key); the regen
 engine keys its draws on the frame slot, so its seed is derived from
 ``(cfg.seed, salt)`` and a pixel's samples do not depend on the band that
-holds it.
+holds it. ``render_image`` renders all the bands of a megakernel frame in
+one launch (``render_bands_mega``) and finalizes them together; the served
+paths keep one band per dispatch, so a client's first band does not wait
+for the frame.
 
 Finalize reproduces the reference's per-subpixel clamp-then-average and
 gamma pipeline (src/server.rs:360-368) in numpy (``finalize``) and on the
@@ -31,10 +34,15 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.ops.intersect import scene_precompute
-from raytracer_tpu_torch.ops.megakernel import band_seed, render_band_mega, supports_megakernel
+from raytracer_tpu_torch.ops.megakernel import (
+    band_seed,
+    render_band_mega,
+    render_bands_mega,
+    supports_megakernel,
+)
 from raytracer_tpu_torch.render.wavefront import render_band_regen
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -243,6 +251,20 @@ class Renderer:
         the reference samples row height-y-1 under label y, src/server.rs:181).
         Returns None when ``cancelled()`` turns true between bands."""
         cfg = self.cfg
+        rows, k, n_passes = self.plan(spp)
+        if self.engine == "mega" and n_passes > 0:
+            if cancelled is not None and cancelled():
+                return None
+            y0s = [y0 for y0, _ in self.iter_bands(spp)]
+            sums, rays = render_bands_mega(
+                self.scene, cfg, y0s, rows, k * n_passes,
+                [band_seed(cfg.seed, y0, 0) for y0 in y0s],
+            )
+            self.ray_counts.append(rays)
+            # The bands tile the render rows [0, H) in order (rows divides H);
+            # render row y lands at label row H-1-y.
+            rgb = finalize_device(sums, k * n_passes).cpu().numpy()
+            return np.ascontiguousarray(rgb.reshape(-1, cfg.width, 3)[: cfg.height][::-1])
         img = np.zeros((cfg.height, cfg.width, 3), np.uint8)
         for y0, rows in self.iter_bands(spp):
             if cancelled is not None and cancelled():

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models import vecmath as vm
 from raytracer_tpu_torch.models.camera import camera_rays3
 from raytracer_tpu_torch.models.scene import BRDF_SPECULAR, LIGHT_SPHERE, SceneArrays

@@ -2,7 +2,7 @@
 
 Port of ``raytracer_tpu/server/app.py``, speaking the same protocol (JSON
 ``render`` / ``stop_rendering`` in, binary 60-pixel RenderedPixels chunks
-out, ``raytracer_tpu.server.wire``) with the same per-connection job
+out, ``raytracer_tpu_torch.server.wire``) with the same per-connection job
 semantics: one render at a time, a job created pre-cancelled, cancellation
 observed between band dispatches, the optional ``width``/``height``,
 ``progressive``, ``stats`` and ``batch`` request fields.
@@ -26,11 +26,11 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from raytracer_tpu.config import DEFAULT_PORT, RenderConfig
-from raytracer_tpu.server import wire
-from raytracer_tpu.utils.timing import RenderStats
+from raytracer_tpu_torch.config import DEFAULT_PORT, RenderConfig
 from raytracer_tpu_torch.render.renderer import Renderer, finalize_device_dyn, make_renderer
+from raytracer_tpu_torch.server import wire
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from raytracer_tpu_torch.utils.timing import RenderStats
 
 log = logging.getLogger("raytracer_tpu_torch.server")
 

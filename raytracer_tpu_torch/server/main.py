@@ -3,7 +3,7 @@
 Mirrors ``raytracer_tpu/server/main.py`` (the reference bootstrap,
 src/main.rs:16-55): eagerly load the scenes from the given directory, read
 PORT from the environment (default 8080), serve forever. The default scene
-list is the reference's, ``raytracer_tpu.config.SCENE_NAMES``: cornell_box,
+list is the reference's, ``raytracer_tpu_torch.config.SCENE_NAMES``: cornell_box,
 cubes and flying_unicorn. ``--device`` defaults to ``cuda`` and there is no
 silent CPU fallback.
 """
@@ -16,7 +16,7 @@ import logging
 import os
 import sys
 
-from raytracer_tpu.config import SCENE_NAMES, port_from_env
+from raytracer_tpu_torch.config import SCENE_NAMES, port_from_env
 from raytracer_tpu_torch.models.loader import load_all_scenes
 from raytracer_tpu_torch.server.app import HEIGHT, WIDTH, Server
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE
@@ -48,7 +48,7 @@ def main(argv: list[str] | None = None) -> int:
 
     cfg = None
     if args.config:
-        from raytracer_tpu.config import config_from_toml
+        from raytracer_tpu_torch.config import config_from_toml
 
         cfg = config_from_toml(args.config)
 

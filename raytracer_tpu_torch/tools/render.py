@@ -28,11 +28,11 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = parser.parse_args(argv)
 
-    from raytracer_tpu.config import RenderConfig
-    from raytracer_tpu.utils.timing import RenderStats
+    from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.models.loader import load_scene
     from raytracer_tpu_torch.render.renderer import make_renderer
     from raytracer_tpu_torch.utils.png import write_png
+    from raytracer_tpu_torch.utils.timing import RenderStats
 
     kwargs = dict(width=args.width, height=args.height, use_mis=args.mis, seed=args.seed)
     if args.max_depth is not None:

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.config import Epsilons
+from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops.bvh import bvh_intersect as jax_bvh_intersect
 from raytracer_tpu.ops.pallas.bvh_kernel import bvh_intersect_pallas
@@ -36,7 +36,7 @@ from raytracer_tpu_torch.ops import bvh_binary as bb
 from raytracer_tpu_torch.ops import bvh_traverse as bt
 from tests.test_bvh import _scene_with_mesh_bvh, random_tri_soup
 from tests.test_torch_traverse import _port_soup_scene, _random_rays, _unicorn_rays
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_eps, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EPS = Epsilons()
@@ -82,7 +82,7 @@ def test_nearest_and_bounded_match_jax_on_a_soup(soup, ref, monkeypatch):
     ro, rd = _random_rays(700, 7)
     bound = _soup_bound(700, 8)
     monkeypatch.setenv("RT_BVH_KERNEL", "binary")
-    args = (jax_scene, jnp.asarray(ro), jnp.asarray(rd), EPS)
+    args = (jax_scene, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS))
     if ref == "xla":
         tj, ij = jax_bvh_intersect(*args, t_init=jnp.asarray(bound))
     else:
@@ -101,7 +101,7 @@ def test_any_hit_with_resolved0_matches_jax_on_a_soup(soup, ref, monkeypatch):
     bound = rng.uniform(1.0, 25.0, 700).astype(np.float32)
     resolved = rng.random(700) < 0.3
     monkeypatch.setenv("RT_BVH_KERNEL", "binary")
-    args = (jax_scene, jnp.asarray(ro), jnp.asarray(rd), EPS)
+    args = (jax_scene, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS))
     if ref == "xla":
         tj, _ = jax_bvh_intersect(*args, t_init=jnp.asarray(bound), any_hit=True,
                                   resolved0=jnp.asarray(resolved))
@@ -120,7 +120,7 @@ def test_nearest_matches_xla_on_crewmate(monkeypatch):
     path = os.path.join(SCENES, "crewmate_phong.toml")
     ref, port = jax_load_scene(path), load_scene(path, device="cpu")
     ro, rd = _unicorn_rays(port, 2048, 31)
-    tj, ij = jax_bvh_intersect(ref, jnp.asarray(ro), jnp.asarray(rd), EPS)
+    tj, ij = jax_bvh_intersect(ref, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS))
     tp, ip = _port(port, ro, rd, monkeypatch)
     assert (tp < 1e30).sum() > 600
     _assert_agrees(np.asarray(tj), np.asarray(ij), tp, ip, np.full(2048, bt.INF, np.float32))
@@ -176,3 +176,18 @@ def test_node_packer_rejects_a_walk_that_cannot_end(mesh):
     tree[2][3] = 3  # a skip link back onto its own node
     with pytest.raises(ValueError, match="skip"):
         pack_binary_nodes(tree)
+
+
+def test_twin_counts_its_visits():
+    """The visit counter changes nothing; it counts real leaf triangles."""
+    port = load_scene(os.path.join(SCENES, "crewmate_phong.toml"), device="cpu")
+    ro, rd = _unicorn_rays(port, 512, 19)
+    args = (port, torch.from_numpy(ro), torch.from_numpy(rd), torch.full((512,), bb.INF),
+            torch.zeros(512, dtype=torch.bool), False, EPS)
+    visits = {}
+    t1, i1 = bb.bvh_binary_twin(*args, visits=visits)
+    t2, i2 = bb.bvh_binary_twin(*args)
+    assert torch.equal(t1, t2) and torch.equal(i1, i2)
+    assert visits["nodes"] >= 512 and visits["leaves"] > 0
+    assert visits["leaves"] <= visits["tris"] <= visits["leaves"] * bt.MAX_LEAF
+    assert 0 < visits["cand"] <= visits["tris"]

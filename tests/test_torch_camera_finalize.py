@@ -8,15 +8,16 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.config import RenderConfig
 from raytracer_tpu.models.camera import camera_rays3 as jax_camera_rays3
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.render.renderer import Renderer as JaxRenderer
 from raytracer_tpu.render.renderer import finalize as np_finalize
 from raytracer_tpu.render.renderer import finalize_device_dyn as jax_finalize_dyn
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.camera import camera_rays3
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.render.renderer import Renderer, finalize, finalize_device, finalize_device_dyn
+from tests.torch_cpu import jax_cfg
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 CORNELL = os.path.join(SCENES, "cornell_box.toml")
@@ -62,7 +63,7 @@ def test_finalize_bit_equal_numpy(num_samples):
 def test_plans_equal_jax(scenes, size):
     ref, port = scenes
     cfg = RenderConfig(width=size[0], height=size[1])
-    jr, tr = JaxRenderer(ref, cfg), Renderer(port, cfg, device="cpu")
+    jr, tr = JaxRenderer(ref, jax_cfg(cfg)), Renderer(port, cfg, device="cpu")
     for spp in (0, 2, 4, 16, 64, 256, 1024):
         assert tr.plan(spp) == jr.plan(spp), spp
         assert tr.plan_delivery(spp) == jr.plan_delivery(spp), spp

@@ -10,7 +10,7 @@ import os
 import pytest
 import torch
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import megakernel as mk
 from raytracer_tpu_torch.render.renderer import Renderer
@@ -153,3 +153,18 @@ def test_crewmate_binary_variant_renders_through_k4(cuda, monkeypatch):
     img = r.render_image(8)
     assert bvh_binary.LAUNCHES > k4 and bvh_traverse.LAUNCHES == k2
     assert img.shape == (48, 64, 3) and img.mean() > 20
+
+
+@pytest.mark.cuda
+def test_all_bands_launch_equals_one_band_launches_on_gpu(cuda):
+    cfg = RenderConfig(width=64, height=48)
+    scene = load_scene(os.path.join(SCENES, "cubes.toml"), device=cuda)
+    pf, static = mk.pack_params(scene, cfg)
+    n = 8 * cfg.width * 4
+    bands = [(y0, mk.band_seed(3, y0, 0)) for y0 in range(0, cfg.height, 8)]
+    before = mk.LAUNCHES
+    acc, rays = mk.mega_cuda_bands(pf, static, bands, 4, n, cuda)
+    assert mk.LAUNCHES == before + 1
+    one = [mk.mega_cuda(pf, static, y0, 4, n, seed, cuda) for y0, seed in bands]
+    assert torch.equal(acc, torch.cat([o[0] for o in one]))
+    assert torch.equal(rays, torch.cat([o[1] for o in one]))

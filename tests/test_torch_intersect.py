@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.config import Epsilons
+from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops import brdf as jax_brdf
 from raytracer_tpu.ops import intersect as jax_ix
@@ -24,7 +24,7 @@ from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import brdf
 from raytracer_tpu_torch.ops import intersect as ix
 from raytracer_tpu_torch.render.integrator import sample_light3
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_eps, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EPS = Epsilons()
@@ -50,7 +50,7 @@ def case(request):
 
 def test_trace_soa_matches_jax(case):
     ref, port, ro, rd = case
-    want = jax_ix.trace(ref, jax_ix.scene_precompute(ref), jnp.asarray(ro), jnp.asarray(rd), EPS)
+    want = jax_ix.trace(ref, jax_ix.scene_precompute(ref), jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS))
     got = ix.trace(port, ix.scene_precompute(port), torch.from_numpy(ro), torch.from_numpy(rd), EPS)
     valid = np.asarray(want.valid)
     np.testing.assert_array_equal(got.valid.numpy(), valid)
@@ -70,7 +70,7 @@ def test_trace_t_bounded_matches_jax(case):
     t_max = np.random.default_rng(1).uniform(0.0, 120.0, n).astype(np.float32)
     t_max[: n // 8] = 0.0  # parked / non-NEE lanes pass 0
     tj, vj = jax_ix.trace_t(ref, jax_ix.scene_precompute(ref), jnp.asarray(ro), jnp.asarray(rd),
-                            EPS, t_max=jnp.asarray(t_max))
+                            jax_eps(EPS), t_max=jnp.asarray(t_max))
     tp, vp = ix.trace_t(port, ix.scene_precompute(port), torch.from_numpy(ro), torch.from_numpy(rd),
                         EPS, t_max=torch.from_numpy(t_max))
     tj, tp = np.asarray(tj), tp.numpy()

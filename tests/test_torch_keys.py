@@ -10,13 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.config import Epsilons, RenderConfig
+from raytracer_tpu_torch.config import Epsilons, RenderConfig
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops.bvh import _coherence_key
 from raytracer_tpu_torch.models.camera import camera_rays3
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import keys
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_eps, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EPS = Epsilons()
@@ -59,7 +59,7 @@ def _rays(scene, rng):
 def test_key_twin_is_bit_equal_to_jax(scenes):
     ref, port = scenes
     ro, rd = _rays(port, np.random.default_rng(3))
-    want = np.asarray(_coherence_key(ref, jnp.asarray(ro), jnp.asarray(rd), EPS))
+    want = np.asarray(_coherence_key(ref, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS)))
     got = keys.coherence_key_twin(port, torch.from_numpy(ro), torch.from_numpy(rd), EPS)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)

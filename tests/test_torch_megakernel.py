@@ -24,12 +24,12 @@ import pytest
 import torch
 
 import raytracer_tpu.ops.pallas.megakernel as jax_mk
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops.intersect import scene_precompute
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import megakernel as mk
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_cfg, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 LANE_RTOL_VS_JAX = 1e-2
@@ -64,7 +64,7 @@ def band(request):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_mk, "_mega_raw", spy)
         sums_j, rays_j = jax_mk.render_band_mega(
-            js, scene_precompute(js), cfg, jnp.int32(y0), rows, jnp.int32(ns),
+            js, scene_precompute(js), jax_cfg(cfg), jnp.int32(y0), rows, jnp.int32(ns),
             jax.random.key(11), interpret=True,
         )
     scene = load_scene(path, device="cpu")
@@ -151,5 +151,32 @@ def test_gating_equals_jax():
         path = os.path.join(SCENES, f"{name}.toml")
         scene, ref = load_scene(path, device="cpu"), jax_load_scene(path)
         for c in (cfg, RenderConfig(use_mis=True)):
-            assert mk.supports_megakernel(scene, c) == jax_mk.supports_megakernel(ref, c)
+            assert mk.supports_megakernel(scene, c) == jax_mk.supports_megakernel(ref, jax_cfg(c))
     assert mk.MEGA_MAX_TRIS == jax_mk.MEGA_MAX_TRIS
+
+
+def test_all_bands_in_one_launch_equal_band_by_band(band):
+    """The frame form (several bands, each lane keeping its band's slot and
+    seed) gives every band's lanes exactly as the one-band form does."""
+    scene, cfg, rows, ns = band["scene"], band["cfg"], band["rows"], band["ns"]
+    y0s = [0, rows, 3 * rows]
+    seeds = [mk.band_seed(5, y0, 0) for y0 in y0s]
+    sums, rays = mk.render_bands_mega(scene, cfg, y0s, rows, ns, seeds)
+    assert sums.shape == (3, rows, cfg.width, 4, 3)
+    total = 0
+    for b, (y0, seed) in enumerate(zip(y0s, seeds)):
+        one, r = mk.render_band_mega(scene, cfg, y0, rows, ns, seed)
+        assert torch.equal(sums[b], one)
+        total += int(r)
+    assert int(rays) == total
+
+
+def test_twin_counts_its_rays(band):
+    pf, static = mk.pack_params(band["scene"], band["cfg"])
+    counts = {}
+    acc, lane_rays = mk.mega_twin(pf, static, band["y0"], band["ns"], band["n"], 11, "cpu", counts=counts)
+    again, _ = mk.mega_twin(pf, static, band["y0"], band["ns"], band["n"], 11, "cpu")
+    assert torch.equal(acc, again)
+    assert counts["samples"] == band["n"] * band["ns"]
+    assert counts["bounces"] + counts["shadow"] == int(lane_rays.sum())
+    assert counts["bounces"] >= counts["samples"] and counts["shadow"] > 0

@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.models.loader import load_scene_dict as jax_load_scene_dict
 from raytracer_tpu.ops import brdf as jax_brdf
@@ -45,7 +45,7 @@ from raytracer_tpu_torch.render.integrator import sample_light3
 from raytracer_tpu_torch.render.renderer import Renderer
 from raytracer_tpu_torch.render.wavefront import render_band_regen
 from tests.test_materials_extra import CUBE_LIGHT, PHONG_SPHERE, SPHERE_LIGHT, _box_scene
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_cfg, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EXACT_SHARE = 0.999
@@ -243,7 +243,7 @@ def test_cube_light_matches_jax(mis):
 
     doc = _box_scene([], CUBE_LIGHT)
     cfg = RenderConfig(width=48, height=36, rays_per_pass=1 << 13, use_mis=mis)
-    want = JaxRenderer(jax_load_scene_dict(doc, name="ml"), cfg).render_image(64).mean()
+    want = JaxRenderer(jax_load_scene_dict(doc, name="ml"), jax_cfg(cfg)).render_image(64).mean()
     got = _render_mean(load_scene_dict(doc, name="ml", device="cpu"), mis)
     assert abs(got - want) < 2.5
 

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import bvh_traverse, keys
 from raytracer_tpu_torch.ops.intersect import scene_precompute

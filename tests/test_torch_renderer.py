@@ -12,12 +12,12 @@ import jax  # noqa: F401  (tests/conftest.py keeps jax on the CPU)
 import numpy as np
 import pytest
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.render.renderer import Renderer as JaxRenderer
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.render.renderer import Renderer, select_band_engine
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_cfg, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 W, H, SPP = 32, 24, 16
@@ -27,7 +27,7 @@ W, H, SPP = 32, 24, 16
 def test_render_image_matches_jax(name):
     path = os.path.join(SCENES, f"{name}.toml")
     cfg = RenderConfig(width=W, height=H)
-    ref = JaxRenderer(jax_load_scene(path), cfg).render_image(SPP)
+    ref = JaxRenderer(jax_load_scene(path), jax_cfg(cfg)).render_image(SPP)
     r = Renderer(load_scene(path, device="cpu"), cfg, device="cpu")
     assert r.engine == "mega"
     img = r.render_image(SPP)
@@ -40,6 +40,26 @@ def test_render_image_matches_jax(name):
     assert r.rays_traced() > W * H * SPP
     again = Renderer(load_scene(path, device="cpu"), cfg, device="cpu").render_image(SPP)
     np.testing.assert_array_equal(again, img)
+
+
+def test_one_launch_frame_equals_band_by_band():
+    """``render_image`` renders a megakernel frame's bands in one launch; it
+    equals the band-by-band composite of ``render_rows``, which the served
+    path uses."""
+    cfg = RenderConfig(width=16, height=12, rays_per_pass=16 * 4 * 3)
+    r = Renderer(load_scene(os.path.join(SCENES, "cornell_box.toml"), device="cpu"), cfg, device="cpu")
+    rows, _, _ = r.plan(8)
+    assert rows == 3
+    img = r.render_image(8)
+    rays = r.rays_traced()
+    assert len(r.ray_counts) == 1
+    want = np.zeros_like(img)
+    for y0, _ in r.iter_bands(8):
+        rgb, _ = r.render_rows(y0, 8)
+        want[cfg.height - y0 - rows : cfg.height - y0] = rgb[::-1]
+    np.testing.assert_array_equal(img, want)
+    assert r.rays_traced() == 2 * rays
+    assert r.render_image(8, cancelled=lambda: True) is None
 
 
 def test_spp_below_four_renders_black():
@@ -72,7 +92,7 @@ def unicorns():
 ], ids=["600x450", "32x24", "1080p", "90x12"])
 def test_unicorn_plans_equal_jax(unicorns, cfg):
     ref, port = unicorns
-    jr = JaxRenderer(ref, cfg)
+    jr = JaxRenderer(ref, jax_cfg(cfg))
     r = Renderer(port, cfg, device="cpu")
     assert r.engine == "regen"
     for spp in (0, 2, 4, 16, 64, 100, 1024):

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops.intersect import tri_precompute as jax_tri_precompute
 from raytracer_tpu_torch.models.convert import scene_from_numpy

@@ -11,13 +11,13 @@ import threading
 import numpy as np
 import pytest
 
-from raytracer_tpu.config import RenderConfig
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.server.app import Server as JaxServer
 from raytracer_tpu.server.wire import parse_chunk
 from raytracer_tpu_torch.models.loader import load_all_scenes
 from raytracer_tpu_torch.server.app import Server
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_cfg, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 NAMES = ("cornell_box", "cubes")
@@ -62,7 +62,7 @@ def port_server():
 @pytest.fixture(scope="module")
 def jax_server():
     scenes = {n: jax_load_scene(os.path.join(SCENES, f"{n}.toml")) for n in NAMES}
-    yield from _serve(JaxServer(scenes, cfg=CFG, width=W, height=H, sharded=False))
+    yield from _serve(JaxServer(scenes, cfg=jax_cfg(CFG), width=W, height=H, sharded=False))
 
 
 async def _frame(port, msg, w=W, h=H, frames=1, timeout=120):

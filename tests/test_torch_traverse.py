@@ -14,15 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.config import Epsilons
 from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops.bvh import bvh_intersect as jax_bvh_intersect
+from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.models.scene import build_scene_arrays
 from raytracer_tpu_torch.ops import bvh
 from raytracer_tpu_torch.ops import bvh_traverse as bt
 from tests.test_bvh import _scene_with_mesh_bvh, random_tri_soup
-from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_cpu import jax_eps, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 EPS = Epsilons()
@@ -81,7 +81,7 @@ def _both(pair, ro, rd, **kw):
     ref, port = pair
     jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
     tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
-    tj, ij = jax_bvh_intersect(ref, jnp.asarray(ro), jnp.asarray(rd), EPS, **jkw)
+    tj, ij = jax_bvh_intersect(ref, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS), **jkw)
     tp, ip = bt.bvh_intersect(port, torch.from_numpy(ro), torch.from_numpy(rd), EPS, **tkw)
     return np.asarray(tj), np.asarray(ij), tp.numpy(), ip.numpy()
 
@@ -175,3 +175,37 @@ def test_cuda_wrapper_refuses_cpu_rays(unicorn):
     with pytest.raises(ValueError, match="CUDA device"):
         bt.bvh_traverse_cuda(port, torch.from_numpy(ro), torch.from_numpy(rd),
                              torch.full((8,), bt.INF), torch.zeros(8, dtype=torch.bool), False, EPS)
+
+
+def test_twin_counts_its_visits(unicorn):
+    """The visit counter changes nothing and counts real leaf triangles."""
+    _, port = unicorn
+    ro, rd = _unicorn_rays(port, 512, 18)
+    args = (port, torch.from_numpy(ro), torch.from_numpy(rd), torch.full((512,), bt.INF),
+            torch.zeros(512, dtype=torch.bool), False, EPS)
+    visits = {}
+    t1, i1 = bt.bvh_traverse_twin(*args, visits=visits)
+    t2, i2 = bt.bvh_traverse_twin(*args)
+    assert torch.equal(t1, t2) and torch.equal(i1, i2)
+    assert visits["nodes"] >= 512 and visits["leaves"] > 0
+    # Real triangles only: fewer than the leaves' padded rows.
+    assert visits["leaves"] <= visits["tris"] < visits["leaves"] * bvh.MAX_LEAF
+
+
+@pytest.mark.parametrize("name", ["flying_unicorn", "crewmate_phong"])
+def test_every_leaf_starts_its_own_group(name):
+    """K2 encodes a leaf by its last row: each leaf of the wide nodes starts
+    its own MAX_LEAF group and holds 1..MAX_LEAF triangles, and the group and
+    count come back from the last row."""
+    port = load_scene(os.path.join(SCENES, f"{name}.toml"), device="cpu")
+    nd = port.bvh8_nodes_flat.view(-1, 8, 8).numpy()
+    child, count = nd[..., 6].astype(np.int64), nd[..., 7].astype(np.int64)
+    bvh.check_leaf_groups(child, count)
+    leaf = count > 0
+    last = child[leaf] + count[leaf] - 1
+    np.testing.assert_array_equal(last // bvh.MAX_LEAF, child[leaf] // bvh.MAX_LEAF)
+    np.testing.assert_array_equal(last % bvh.MAX_LEAF + 1, count[leaf])
+    bad = child.copy()
+    bad[leaf.nonzero()[0][0], leaf.nonzero()[1][0]] += 1
+    with pytest.raises(ValueError, match="group"):
+        bvh.check_leaf_groups(bad, count)
