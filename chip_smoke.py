@@ -5,7 +5,8 @@ nvcc each, all at once) and prints what ``-Xptxas -v`` says of each
 (registers, stack frame, spills). Holds each kernel against its plain
 PyTorch twin on the card: K1 on a cornell_box and a cubes band, and its
 all-bands frame launch against the bands launched one by one; K2 and K4 at
-every ray class and width of the main path; K3 on every class. Counts, with
+every ray class and width of the main path; K3 on every class (and, with a
+shorter cut, through its run-time cut count). Counts, with
 the twins, the visits of the BVH walks and the rays of K1 that the bounds
 below rest on.
 Then drives the port's three main paths the way a user would:
@@ -41,10 +42,12 @@ Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the card's
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import os
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -98,10 +101,21 @@ K1_OPS = dict(sphere=25, plane=21, tri=47, camera=46, bounce=130, shadow=60)
 # only for a t that can still win: the least work, not what the kernel,
 # which computes them for every real triangle, does).
 K2_OPS = dict(ray=9, node=208, tri=16, cand=30)
-K4_OPS = dict(ray=9, node=27, tri=48, cand=0)
-# K3 (coherence_key.cu): per ray (inverse direction, octant, Morton code)
-# and per treetop-cut box (one slab test and the compares).
-K3_OPS = dict(ray=33, cut=26)
+# K4 per ray: 3 guards and 3 divisions of the inverse direction, 3 compares
+# of the octant. Per node whose box is tested: 6 subtractions, 6 products, 12
+# minima and maxima, 3 compares. Per real triangle of an entered leaf (the up to three padded
+# rows of its last group of four are no work): denom 5, its guard 1, n.ro 5,
+# t 2, u 13, v 13, the tests 8.
+K4_OPS = dict(ray=9, node=27, tri=47, cand=0)
+# K3 (coherence_key.cu): per ray (inverse direction 6, miss 1, octant 3,
+# Morton code 3 x 7) and per treetop-cut box (a slab test of 22 and 3
+# compares).
+K3_OPS = dict(ray=31, cut=25)
+# The breakdown's spacer: device cycles (about 0.2 ms) queued in front of a
+# timed launch, so that the launch and both its events are queued before
+# the device reaches them and the device never waits for the host between
+# the two events.
+SPACER_CYCLES = 400_000
 
 
 def check(ok: bool, what: str) -> None:
@@ -215,6 +229,10 @@ def hold_traversal(label, kernels, twin, runs):
 REDESIGNED = {
     "K1": "all bands of a frame in one launch; material rows in shared memory; __launch_bounds__(128, 8)",
     "K2": "real leaf triangles only; a triangle's rows loaded together; nodes through the read-only cache",
+    "K3": "cut count at compile time for the loader's 32 boxes, eight cuts a loop turn (run-time count "
+          "otherwise); one ray a thread",
+    "K4": "per-octant node layouts, near child first; a lane walks on to a leaf before it tests rows; 32-byte "
+          "nodes; leaf rows four at a time",
 }
 
 
@@ -247,6 +265,7 @@ def main() -> int:
     from raytracer_tpu_torch.render.renderer import Renderer
     from raytracer_tpu_torch.server.app import RenderJob, Server
     from raytracer_tpu_torch.server.wire import parse_chunk, parse_chunks
+    from raytracer_tpu_torch.tools.kernel_steps import SPACER_CYCLES as RUN_SPACER
     from raytracer_tpu_torch.tools.kernel_steps import card, event_ms, ptxas_lines, scene_rays
     from raytracer_tpu_torch.utils.png import read_png
 
@@ -336,6 +355,16 @@ def main() -> int:
         print(f"[kernel-vs-twin] K3 {cname} rays={k_k.numel()}: keys differ on {n_diff} "
               f"(misses {int((k_k >> 30).sum())})", flush=True)
         check(n_diff == 0, f"K3 differs from its twin on {n_diff} {cname} rays")
+    # A tree with fewer inner nodes gets a shorter cut, which the kernel takes
+    # with its cut count at run time: the unicorn's first 20 boxes.
+    short = dataclasses.replace(uni, bvh_cut_lo=uni.bvh_cut_lo[:20].contiguous(),
+                                bvh_cut_hi=uni.bvh_cut_hi[:20].contiguous())
+    ro, rd = classes["bounce"][:2]
+    n_diff = int((keys.coherence_key_cuda(short, ro, rd, cfg.eps)
+                  != keys.coherence_key_twin(short, ro, rd, cfg.eps)).sum())
+    print(f"[kernel-vs-twin] K3 bounce rays={ro[0].numel()}, 20 cut boxes (run-time count): keys differ on "
+          f"{n_diff}", flush=True)
+    check(n_diff == 0, f"K3 with 20 cut boxes differs from its twin on {n_diff} rays")
     # K2 on each class at the frame's width, then on the bounce class at the
     # other widths of the main path: the tail-compaction stages of the frame,
     # and a served delivery band with its own stages.
@@ -354,7 +383,7 @@ def main() -> int:
     t0 = time.perf_counter()
     crew = load_scene(os.path.join(ROOT, "scenes", "crewmate_phong.toml"), device="cuda")
     crew_pre = scene_precompute(crew)
-    print(f"[load] crewmate_phong: {crew.n_triangles} triangle slots, {crew.bvh_binary_nodes.shape[0]} "
+    print(f"[load] crewmate_phong: {crew.n_triangles} triangle slots, {crew.bvh_binary_nodes8.shape[0]} "
           f"binary nodes ({int((crew.bvh_count > 0).sum())} leaves), {crew.bvh8_nodes_flat.shape[0]} wide "
           f"nodes, in {time.perf_counter() - t0:.2f} s", flush=True)
     _, crew_classes = scene_rays(crew, crew_pre, cfg, n_frame)
@@ -643,12 +672,14 @@ def main() -> int:
           f"rays, bound {b256:.4f} ms ({by256}; {instr256:.4f} ms at the FMA-free instruction rate), "
           f"{b256 / t256:.2%} of it reached | {smi}", flush=True)
     # K3 on the frame's camera rays, K2 on its coherence-sorted bounce rays.
-    k3_ms = event_ms(lambda: keys.coherence_key_cuda(uni, cam[0], cam[1], cfg.eps), 20)
+    # A K3 launch is shorter than its wrapper's host time, so its 20 launches
+    # are queued behind a spacer: the events time the kernel, not the host.
+    k3_ms = event_ms(lambda: keys.coherence_key_cuda(uni, cam[0], cam[1], cfg.eps), 20, RUN_SPACER)
     k3_twin_ms = wall_ms(lambda: keys.coherence_key_twin(uni, cam[0], cam[1], cfg.eps))
     n_cam = cam[0][0].numel()
     n_cut = uni.bvh_cut_lo.shape[0]
     k3_bound, k3_by, _ = bound_ms(n_cam * (K3_OPS["ray"] + n_cut * K3_OPS["cut"]), n_cam * 28 + (n_cut + 1) * 24)
-    print(f"[time] K3 {n_cam} camera rays: kernel {k3_ms:.4f} ms, twin {k3_twin_ms:.2f} ms; per 1M rays "
+    print(f"[time] K3 {n_cam} camera rays: kernel {k3_ms:.4f} ms (queued behind a spacer), twin {k3_twin_ms:.2f} ms; per 1M rays "
           f"{k3_ms * 1e6 / n_cam:.4f} / {k3_twin_ms * 1e6 / n_cam:.2f} ms; bound {k3_bound:.4f} ms ({k3_by}), "
           f"{k3_bound / k3_ms:.2%} of it reached | {smi}", flush=True)
     k2_ms = event_ms(lambda: bt.bvh_traverse_cuda(*bounce_args), 10)
@@ -668,12 +699,12 @@ def main() -> int:
     k2_crew_ms = event_ms(lambda: bt.bvh_traverse_cuda(*crew_bounce), 10)
     k4_uni_ms = event_ms(lambda: bb.bvh_binary_cuda(*bounce_args), 10)
     k4_ops, k4_bytes = walk_work(K4_OPS, visits["K4", "crewmate_phong"], n_frame,
-                                 table_bytes(crew, crew.bvh_binary_nodes))
+                                 table_bytes(crew, crew.bvh_octant_nodes))
     k4_bound, k4_by, k4_instr = bound_ms(k4_ops, k4_bytes)
     k2c_bound = bound_ms(*walk_work(K2_OPS, visits["K2", "crewmate_phong"], n_frame,
                                     table_bytes(crew, crew.bvh8_nodes_flat)))[0]
     k4u_bound = bound_ms(*walk_work(K4_OPS, visits["K4", "flying_unicorn"], n_frame,
-                                    table_bytes(uni, uni.bvh_binary_nodes)))[0]
+                                    table_bytes(uni, uni.bvh_octant_nodes)))[0]
     print(f"[time] K4 {n_frame} sorted crewmate bounce rays: kernel {k4_ms:.4f} ms, twin {k4_twin_ms:.2f} ms, "
           f"K2 {k2_crew_ms:.4f} ms; per 1M rays {k4_ms * 1e6 / n_frame:.4f} / {k4_twin_ms * 1e6 / n_frame:.2f} / "
           f"{k2_crew_ms * 1e6 / n_frame:.4f} ms; bound K4 {k4_bound:.4f} ms ({k4_by}; {k4_instr:.4f} ms FMA-free), "
@@ -691,40 +722,48 @@ def main() -> int:
             rays = r.rays_traced()
             print(f"[time] {s} 600x450 {spp}spp: {wall:.4f} s, {rays / wall / 1e6:.1f} Mrays/s | {smi}",
                   flush=True)
-    # Where the time goes: the traversal (K2 or K4) and K3 device time by
-    # CUDA events around every launch of one render; the rest is glue.
+    # Where the time goes: one plain render for the wall, then one with every
+    # traversal (K2 or K4) and K3 launch timed by CUDA events recorded
+    # directly before and after it, behind a spacer (SPACER_CYCLES): the
+    # kernels' own durations. The rest of the wall is glue.
     def breakdown(scene, spp, label):
         spent = {"trav": [], "K3": []}
 
-        def timed(fn, bucket):
-            def run(*a, **kw):
+        def timed(launch, bucket):
+            def run(*a):
+                torch.cuda._sleep(SPACER_CYCLES)
                 e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 e0.record()
-                out = fn(*a, **kw)
+                rc = launch(*a)
                 e1.record()
                 spent[bucket].append((e0, e1))
-                return out
+                return rc
             return run
 
-        real = (bt.bvh_traverse_cuda, bt.bvh_binary_cuda, keys.coherence_key_cuda)
-        bt.bvh_traverse_cuda = timed(real[0], "trav")
-        bt.bvh_binary_cuda = timed(real[1], "trav")
-        keys.coherence_key_cuda = timed(real[2], "K3")
-        try:
+        def render():
             r = Renderer(scene, RenderConfig(), device="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.render_image(spp)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+            return r, (time.perf_counter() - t0) * 1e3
+
+        r, wall = render()
+        real = (bt._lib, bb._launch_fn, keys._launch_fn)
+        k2_lib = types.SimpleNamespace(rt_bvh8_launch=timed(real[0]().rt_bvh8_launch, "trav"))
+        k4_fn, k3_fn = timed(real[1](), "trav"), timed(real[2](), "K3")
+        bt._lib, bb._launch_fn, keys._launch_fn = (lambda: k2_lib), (lambda: k4_fn), (lambda: k3_fn)
+        try:
+            render()
         finally:
-            bt.bvh_traverse_cuda, bt.bvh_binary_cuda, keys.coherence_key_cuda = real
+            bt._lib, bb._launch_fn, keys._launch_fn = real
         trav = sum(a.elapsed_time(b) for a, b in spent["trav"])
         k3 = sum(a.elapsed_time(b) for a, b in spent["K3"])
         rays = r.rays_traced()
         print(f"[time] {label} 600x450 {spp}spp: {wall / 1e3:.4f} s, {rays / wall / 1e3:.2f} Mrays/s; breakdown "
-              f"wall {wall:.1f} ms = traversal {trav:.1f} ms ({len(spent['trav'])} launches) + K3 {k3:.1f} ms "
-              f"({len(spent['K3'])} launches) + glue {wall - trav - k3:.1f} ms | {smi}", flush=True)
+              f"wall {wall:.1f} ms = traversal kernels {trav:.1f} ms ({len(spent['trav'])} launches) + K3 kernels "
+              f"{k3:.1f} ms ({len(spent['K3'])} launches) + glue {wall - trav - k3:.1f} ms (kernel times: events "
+              f"directly around each launch of a second render) | {smi}", flush=True)
         return len(spent["trav"]), len(spent["K3"])
 
     per_frame = {"K1": k1_per_frame["cornell_box"]}
@@ -769,6 +808,7 @@ def main() -> int:
             "launches": launches["K3"], "max_abs_err": key_err,
             "ms": k3_ms, "plain_ms": k3_twin_ms, "bound_ms": k3_bound, "bound_by": k3_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K3"],
+            "redesigned": REDESIGNED["K3"],
         },
         {
             "name": "bvh_binary_kernel", "route": "cuda",
@@ -777,6 +817,7 @@ def main() -> int:
             "launches": launches["K4"], "max_abs_err": k4_err,
             "ms": k4_ms, "plain_ms": k4_twin_ms, "bound_ms": k4_bound, "bound_by": k4_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K4"],
+            "redesigned": REDESIGNED["K4"],
         },
     ]}))
     print(smi)

@@ -16,6 +16,11 @@ lay the tree out in [.., 128]-lane VMEM tiles. The Hopper kernels
 - ``pack_binary_nodes``: one [12] f32 row per binary node, three float4s
   (lo.xyz, skip), (hi.xyz, count), (first, 0, 0, 0): the fields that JAX's
   ``pack_for_pallas`` puts in the lanes of ``bvh_nodes_packed``;
+- ``pack_binary_nodes8``: the same node in 32 bytes, two float4s
+  (lo.xyz, link), (hi.xyz, count): ``link`` is ``skip`` for an inner node
+  and ``first`` for a leaf, whose skip link in pre-order is always the next
+  node; ``octant_orders`` and ``pack_octant_nodes`` lay the same tree out
+  once per direction octant, near child first (K4 reads these);
 - ``pack_leaf_tris``: one [12] f32 row per triangle of the leaf-ordered,
   leaf-padded layout, (n_unit.xyz, n_d, q1.xyz, q1_a, q2.xyz, q2_a),
   computed in f64 from the f64 vertices and rounded once: the rows of the
@@ -282,11 +287,10 @@ def pack_bvh8_nodes(w_lo, w_hi, w_child, w_count) -> np.ndarray:
     return flat
 
 
-def pack_binary_nodes(bvh) -> np.ndarray:
-    """[Nn, 12] f32 node table of the binary tree for the skip-link walk
-    (ints exact in f32 below 2^24). Raises on a table the walk could not
-    finish: a skip link must point past its node and at most one past the
-    last node."""
+def _check_binary_tree(bvh) -> None:
+    """Raise on a tree the skip-link walk could not finish (a skip link must
+    point past its node and at most one past the last node) or whose integer
+    fields are not exact in f32 (below 2^24)."""
     lo, hi, skip, first, count = bvh
     n = lo.shape[0]
     ids = np.arange(n)
@@ -294,6 +298,16 @@ def pack_binary_nodes(bvh) -> np.ndarray:
         raise ValueError("BVH skip links must point past their node, at most to the end")
     if (np.abs(np.stack([skip, first, count])) >= 2**24).any():
         raise ValueError("BVH node field exceeds the f32-exact integer range")
+
+
+def pack_binary_nodes(bvh) -> np.ndarray:
+    """[Nn, 12] f32 node table of the binary tree for the skip-link walk
+    (ints exact in f32 below 2^24). Raises on a table the walk could not
+    finish: a skip link must point past its node and at most one past the
+    last node."""
+    _check_binary_tree(bvh)
+    lo, hi, skip, first, count = bvh
+    n = lo.shape[0]
     rows = np.zeros((n, 12), np.float32)
     rows[:, 0:3] = lo
     rows[:, 3] = skip
@@ -301,6 +315,68 @@ def pack_binary_nodes(bvh) -> np.ndarray:
     rows[:, 7] = count
     rows[:, 8] = first
     return rows
+
+
+def octant_orders(bvh) -> np.ndarray:
+    """[8, Nn] i64: for each direction octant o (bit k set: the direction is
+    negative along axis k, the coherence key's octant), the pre-order layout
+    of the same tree in which every inner node's near child comes first.
+    ``orders[o][j]`` is the tree's own id of the node at position j.
+
+    The near child of an inner node is the one whose box centre comes first,
+    in the octant's direction, along the axis on which the two children's
+    centres lie farthest apart; children level on that axis keep the tree's
+    own order. A subtree keeps its size whatever the order inside it, so a
+    node's position follows from its parent's.
+    """
+    _check_binary_tree(bvh)
+    lo, hi, skip, first, count = bvh
+    n = lo.shape[0]
+    size = skip.astype(np.int64) - np.arange(n)
+    inner = np.nonzero(count == 0)[0]
+    c1 = inner + 1
+    c2 = skip[c1].astype(np.int64)
+    centre = (lo.astype(np.float64) + hi.astype(np.float64)) * 0.5
+    gap = centre[c2] - centre[c1]  # > 0 on an axis: the first child lies lower
+    axis = np.abs(gap).argmax(axis=1)
+    along = gap[np.arange(inner.size), axis]
+    orders = np.empty((8, n), np.int64)
+    for o in range(8):
+        negative = (o >> axis) & 1
+        swap = np.where(negative == 1, along > 0, along < 0)
+        pos = np.zeros(n, np.int64)
+        # Parents come before their children in the tree's own pre-order.
+        for i, a, b, sw in zip(inner.tolist(), c1.tolist(), c2.tolist(), swap.tolist()):
+            near, far = (b, a) if sw else (a, b)
+            pos[near] = pos[i] + 1
+            pos[far] = pos[i] + 1 + size[near]
+        orders[o, pos] = np.arange(n)
+    return orders
+
+
+def pack_binary_nodes8(bvh, order: np.ndarray | None = None) -> np.ndarray:
+    """[Nn, 8] f32 node table of the binary tree, 32 bytes a node:
+    (lo.xyz, link), (hi.xyz, count). ``link`` is the skip link of an inner
+    node and ``first`` of a leaf (a leaf's skip link is the next node).
+    ``order`` ([Nn], one row of ``octant_orders``) lays the nodes out in
+    that pre-order, skip links recomputed; None keeps the tree's own."""
+    _check_binary_tree(bvh)
+    lo, hi, skip, first, count = bvh
+    n = lo.shape[0]
+    if order is None:
+        order = np.arange(n)
+    size = skip.astype(np.int64)[order] - order
+    rows = np.zeros((n, 8), np.float32)
+    rows[:, 0:3] = lo[order]
+    rows[:, 3] = np.where(count[order] > 0, first[order], np.arange(n) + size)
+    rows[:, 4:7] = hi[order]
+    rows[:, 7] = count[order]
+    return rows
+
+
+def pack_octant_nodes(bvh) -> np.ndarray:
+    """[8, Nn, 8] f32: ``pack_binary_nodes8`` in each octant's order."""
+    return np.stack([pack_binary_nodes8(bvh, order) for order in octant_orders(bvh)])
 
 
 def pack_leaf_tris(tri_pts_ordered: np.ndarray) -> np.ndarray:

@@ -12,8 +12,10 @@ ray, an i32 ``miss<<30 | entry<<17 | octant<<13 | morton12``:
   (``_morton12`` :501), quantised by a true division.
 
 Three parts, as for K1: the plain PyTorch twin (``coherence_key_twin``),
-the CUDA kernel (``ops/csrc/coherence_key.cu``, one thread per ray, built
-at first use, counted in ``LAUNCHES``), and the wrapper
+the CUDA kernel (``ops/csrc/coherence_key.cu``: the cut loop unrolled over
+the loader's 32 boxes with the table as constant operands, the same source
+with a run-time count for any other; built at first use, counted in
+``LAUNCHES``), and the wrapper
 ``coherence_key``, which runs the twin for CPU tensors and the kernel for
 CUDA tensors and never falls back. ``coherence_order`` sorts by the key.
 """
@@ -32,7 +34,8 @@ from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
 
 # Cut boxes the kernel's by-value table holds (KEY_MAX_CUT in
-# ops/csrc/coherence_key.cu); the loader builds 32.
+# ops/csrc/coherence_key.cu); the loader builds 32 (ops/bvh.py::MAX_CUT),
+# the count the kernel unrolls (KEY_STATIC_CUT there).
 KEY_MAX_CUT = 64
 
 # Kernel launches since import (or since a caller reset it).

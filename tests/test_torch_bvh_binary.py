@@ -8,6 +8,11 @@ package, and the variant dispatch.
 - on crewmate_phong rays, against XLA only (interpret mode is slow there);
 - the walk finds the same nearest t as K2's twin on unicorn and crewmate
   rays;
+- the 32-byte node table and the eight octant layouts against the five tree
+  arrays; the ordered walk (the kernel's) against the fixed-order walk and
+  against JAX's K4, nearest and any-hit: t equal bit for bit between the
+  two walks of the twin (the minimum over the same triangles), indices
+  equal except where two triangles tie in t;
 - ``RT_BVH_KERNEL`` routes the traversal; the CUDA wrapper refuses CPU
   rays; the node packer refuses a table the walk could not finish. (The
   node table itself is held against JAX's in tests/test_torch_scene.py.)
@@ -32,6 +37,7 @@ from raytracer_tpu.models.loader import load_scene as jax_load_scene
 from raytracer_tpu.ops.bvh import bvh_intersect as jax_bvh_intersect
 from raytracer_tpu.ops.pallas.bvh_kernel import bvh_intersect_pallas
 from raytracer_tpu_torch.models.loader import load_scene
+from raytracer_tpu_torch.ops import bvh
 from raytracer_tpu_torch.ops import bvh_binary as bb
 from raytracer_tpu_torch.ops import bvh_traverse as bt
 from tests.test_bvh import _scene_with_mesh_bvh, random_tri_soup
@@ -191,3 +197,157 @@ def test_twin_counts_its_visits():
     assert visits["nodes"] >= 512 and visits["leaves"] > 0
     assert visits["leaves"] <= visits["tris"] <= visits["leaves"] * bt.MAX_LEAF
     assert 0 < visits["cand"] <= visits["tris"]
+
+
+# --- the 32-byte node table and the octant layouts -------------------------------
+
+
+def _tree(port):
+    return [getattr(port, k).numpy() for k in ("bvh_lo", "bvh_hi", "bvh_skip", "bvh_first", "bvh_count")]
+
+
+def _two_leaf_tree():
+    """A root over a low and a high leaf on x, low first: the tree's own
+    order is the +x octants' near-child-first order."""
+    lo = np.array([[0, 0, 0], [0, 0, 0], [2, 0, 0]], np.float32)
+    hi = np.array([[3, 1, 1], [1, 1, 1], [3, 1, 1]], np.float32)
+    return [lo, hi, np.array([3, 2, 3], np.int32), np.array([-1, 0, 64], np.int32), np.array([0, 5, 7], np.int32)]
+
+
+def test_nodes8_holds_the_tree_with_link_for_skip_or_first(mesh):
+    lo, hi, skip, first, count = _tree(mesh)
+    rows = mesh.bvh_binary_nodes8.numpy()
+    n = lo.shape[0]
+    assert rows.shape == (n, 8) and rows.dtype == np.float32
+    np.testing.assert_array_equal(rows[:, 0:3], lo)
+    np.testing.assert_array_equal(rows[:, 4:7], hi)
+    np.testing.assert_array_equal(rows[:, 7], count)
+    leaf = count > 0
+    np.testing.assert_array_equal(rows[leaf, 3], first[leaf])  # a leaf's link: its first row
+    np.testing.assert_array_equal(rows[~leaf, 3], skip[~leaf])  # an inner node's: its skip link
+    np.testing.assert_array_equal(skip[leaf], np.arange(n)[leaf] + 1)  # which a leaf does not need
+    np.testing.assert_array_equal(rows, bvh.pack_binary_nodes8(_tree(mesh)))
+
+
+def test_octant_layouts_are_preorders_of_the_same_tree(mesh):
+    tree = _tree(mesh)
+    lo, hi, skip, first, count = tree
+    n = lo.shape[0]
+    orders = bvh.octant_orders(tree)
+    tables = mesh.bvh_octant_nodes.numpy()
+    assert orders.shape == (8, n) and tables.shape == (8, n, 8)
+    size = skip - np.arange(n)
+    for o in range(8):
+        order, rows = orders[o], tables[o]
+        np.testing.assert_array_equal(np.sort(order), np.arange(n))  # every node once
+        np.testing.assert_array_equal(rows, bvh.pack_binary_nodes8(tree, order))
+        np.testing.assert_array_equal(rows[:, 0:3], lo[order])
+        np.testing.assert_array_equal(rows[:, 7], count[order])
+        leaf = rows[:, 7] > 0
+        # The same leaves, each with its own rows of the leaf table.
+        np.testing.assert_array_equal(np.sort(rows[leaf, 3]), np.sort(first[count > 0]))
+        np.testing.assert_array_equal(rows[leaf, 3], first[order][leaf])
+        # Skip links past their node, at most one past the end, over a subtree of the same size.
+        link = rows[~leaf, 3]
+        at = np.arange(n)[~leaf]
+        assert (link > at).all() and (link <= n).all()
+        np.testing.assert_array_equal(link - at, size[order][~leaf])
+        # A pre-order: an inner node's children are the next node and the one its sibling's subtree ends at.
+        pos = np.empty(n, np.int64)
+        pos[order] = np.arange(n)
+        inner = np.nonzero(count == 0)[0]
+        kids = np.stack([pos[inner + 1], pos[skip[inner + 1]]], axis=1)
+        np.testing.assert_array_equal(kids.min(axis=1), pos[inner] + 1)
+        near_size = np.where(kids[:, 0] < kids[:, 1], size[inner + 1], size[skip[inner + 1]])
+        np.testing.assert_array_equal(kids.max(axis=1), pos[inner] + 1 + near_size)
+        if (order == np.arange(n)).all():
+            np.testing.assert_array_equal(rows, mesh.bvh_binary_nodes8.numpy())
+    # Opposite octants put opposite children first wherever they differ at all.
+    assert not (orders[0] == orders[7]).all()
+
+
+def test_an_octant_in_the_trees_own_order_gets_nodes8():
+    tree = _two_leaf_tree()
+    orders = bvh.octant_orders(tree)
+    tables = bvh.pack_octant_nodes(tree)
+    own = bvh.pack_binary_nodes8(tree)
+    for o in range(8):
+        if o & 1:  # -x: the high leaf is near
+            np.testing.assert_array_equal(orders[o], [0, 2, 1])
+            np.testing.assert_array_equal(tables[o][:, 3], [3, 64, 0])
+        else:
+            np.testing.assert_array_equal(orders[o], [0, 1, 2])
+            np.testing.assert_array_equal(tables[o], own)
+    np.testing.assert_array_equal(own[:, 3], [3, 0, 64])
+    np.testing.assert_array_equal(own[:, 7], [0, 5, 7])
+
+
+def _twin_args(port, ro, rd, bound=None, resolved=None, any_hit=False):
+    n = ro.shape[0]
+    t_init = torch.full((n,), bt.INF) if bound is None else torch.from_numpy(bound)
+    res = torch.zeros(n, dtype=torch.bool) if resolved is None else torch.from_numpy(resolved)
+    return (port, torch.from_numpy(ro).unbind(1), torch.from_numpy(rd).unbind(1), t_init, res, any_hit, EPS)
+
+
+def _assert_same_hits_but_for_ties(port, args, got, want):
+    """t bit-equal; indices equal except where the two triangles tie in t."""
+    assert torch.equal(got[0], want[0])
+    diff = got[1] != want[1]
+    assert torch.equal(bt.leaf_t(port, args[1], args[2], got[1])[diff],
+                       bt.leaf_t(port, args[1], args[2], want[1])[diff])
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+def test_ordered_walk_equals_fixed_order_walk_on_mesh_rays(mesh, bounded):
+    ro, rd = _unicorn_rays(mesh, 3000, 41)
+    bound = np.random.default_rng(42).uniform(1.0, 120.0, 3000).astype(np.float32) if bounded else None
+    args = _twin_args(mesh, ro, rd, bound)
+    v_ord, v_fix = {}, {}
+    ordered = bb.bvh_binary_twin(*args, visits=v_ord)
+    fixed = bb.bvh_binary_twin(*args, visits=v_fix, ordered=False)
+    assert (ordered[0] < args[3]).sum() > 500
+    _assert_same_hits_but_for_ties(mesh, args, ordered, fixed)
+    # Near child first finds the near hit early and prunes the rest.
+    assert v_ord["leaves"] < v_fix["leaves"] and v_ord["nodes"] < v_fix["nodes"]
+
+
+def test_ordered_walk_equals_fixed_order_walk_on_a_soup(soup):
+    _, port = soup
+    ro, rd = _random_rays(700, 43)
+    args = _twin_args(port, ro, rd, _soup_bound(700, 44))
+    ordered = bb.bvh_binary_twin(*args)
+    assert (ordered[0] < args[3]).sum() > 30
+    _assert_same_hits_but_for_ties(port, args, ordered, bb.bvh_binary_twin(*args, ordered=False))
+
+
+def test_any_hit_agrees_on_occlusion_in_both_orders(mesh):
+    """Any-hit may stop at any hit below the bound, so the two orders agree
+    on occlusion, not on t; each t is a real hit at or beyond the nearest."""
+    ro, rd = _unicorn_rays(mesh, 2000, 45)
+    rng = np.random.default_rng(46)
+    bound = rng.uniform(1.0, 120.0, 2000).astype(np.float32)
+    resolved = rng.random(2000) < 0.2
+    args = _twin_args(mesh, ro, rd, bound, resolved, any_hit=True)
+    t_ord, _ = bb.bvh_binary_twin(*args)
+    t_fix, _ = bb.bvh_binary_twin(*args, ordered=False)
+    t_near, _ = bb.bvh_binary_twin(*_twin_args(mesh, ro, rd, bound))
+    b, m = args[3], ~args[4]
+    assert ((t_ord < b)[m]).sum() > 100
+    assert torch.equal((t_ord < b)[m], (t_fix < b)[m]) and torch.equal((t_ord < b)[m], (t_near < b)[m])
+    assert (t_ord[m] >= t_near[m]).all() and (t_fix[m] >= t_near[m]).all()
+    assert torch.equal(t_ord[~m], b[~m]) and torch.equal(t_fix[~m], b[~m])  # resolved: no walk
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+def test_both_orders_match_the_pallas_walk_on_a_soup(soup, ordered, monkeypatch):
+    """JAX's K4 in interpret mode against the twin called directly in either
+    order, nearest and bounded hits: the tolerances of ``_assert_agrees``."""
+    jax_scene, port = soup
+    ro, rd = _random_rays(500, 47)
+    bound = _soup_bound(500, 48)
+    monkeypatch.setenv("RT_BVH_KERNEL", "binary")
+    tj, ij = bvh_intersect_pallas(jax_scene, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS),
+                                  t_init=jnp.asarray(bound), interpret=True)
+    tp, ip = bb.bvh_binary_twin(*_twin_args(port, ro, rd, bound), ordered=ordered)
+    ip = ip.clamp(0, port.tri_a.shape[0] - 1)
+    _assert_agrees(np.asarray(tj), np.asarray(ij), tp.numpy(), ip.numpy(), bound)

@@ -70,10 +70,18 @@ def _unicorn_rays(scene, n, seed, dev):
 
 
 @pytest.mark.cuda
-def test_key_kernel_is_bit_equal_to_twin_on_gpu(cuda):
+@pytest.mark.parametrize("n_cut", [32, 20])
+def test_key_kernel_is_bit_equal_to_twin_on_gpu(cuda, n_cut):
+    """32 cut boxes: the kernel with its cut count at compile time; 20: the
+    same source with the count at run time."""
+    import dataclasses
+
     from raytracer_tpu_torch.ops import keys
 
     scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    assert scene.bvh_cut_lo.shape[0] == 32
+    scene = dataclasses.replace(scene, bvh_cut_lo=scene.bvh_cut_lo[:n_cut].contiguous(),
+                                bvh_cut_hi=scene.bvh_cut_hi[:n_cut].contiguous())
     ro, rd = _unicorn_rays(scene, 1 << 16, 1, cuda)
     before = keys.LAUNCHES
     k = keys.coherence_key_cuda(scene, ro, rd, RenderConfig().eps)

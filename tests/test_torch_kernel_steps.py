@@ -1,4 +1,4 @@
-"""The design-step variants of K1 and K2 (``tools/kernel_steps.py``), on the
+"""The design-step variants of K1-K4 (``tools/kernel_steps.py``), on the
 CPU: each variant's source is built from the shipped one, the register
 sorting network orders the children as the shipped insertion does, and the
 helpers that ``chip_smoke.py`` shares parse and draw what they should. The
@@ -30,6 +30,18 @@ MARK = {
     "K2_lazy_uv": "if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f) {",
     "K2_padded_rows": "for (int j = 0; j < p.max_leaf; ++j) {",
     "K2_smem_nodes": "cudaFuncSetAttribute(bvh8_kernel",
+    "K3_runtime_loop": "  auto kernel = key_kernel<0>;",
+    "K3_two_rays": "#define KEY_RAYS 2",
+    "K3_four_rays": "#define KEY_RAYS 4",
+    "K3_sign_select": "const float lo = back ? t1 : t0, hi = back ? t0 : t1;",
+    "K3_octant_scan": "case 0: nearest_cut<NC, 0>(tab, n_cut, ro, inv, tri_tmin, best_t, best_i); break;",
+    "K3_full_unroll": "#pragma unroll\n  for (int c = 0; c < n_cut; ++c) {",
+    "K4_node12": "first = (int)__ldg(nd + NODE_F4 * (node - 1) + 2).x;",
+    "K4_one_node_a_turn": "    } while (false);",
+    "K4_fetch_ahead": "const float4 na = __ldg(nd + NODE_F4 * ahead), nb = __ldg(nd + NODE_F4 * ahead + 1);",
+    "K4_leaf_unroll_2": "#define LEAF_UNROLL 2",
+    "K4_leaf_loop_rolled": "#define LEAF_UNROLL 1",
+    "K4_fixed_order": "const int octant = 0;",
 }
 
 
@@ -47,6 +59,43 @@ def test_variant_source_is_the_shipped_one_with_its_edits(name):
         assert MARK[name] in src and MARK[name] not in shipped
         assert "extern \"C\" int rt_" in src  # the same C interface
         assert src.count("__global__") == shipped.count("__global__")
+
+
+def test_every_kernel_has_its_shipped_entry_and_its_steps():
+    for kernel, n_steps in (("K1", 3), ("K2", 5), ("K3", 6), ("K4", 6)):
+        assert ks.EDITS[f"{kernel}_shipped"][1] == []
+        assert sum(n.startswith(kernel) for n in ks.EDITS) == n_steps + 1
+    assert {ks.EDITS[n][0] for n in ks.EDITS if n.startswith("K3")} == {"coherence_key"}
+    assert {ks.EDITS[n][0] for n in ks.EDITS if n.startswith("K4")} == {"bvh_binary"}
+
+
+def test_fetch_ahead_variant_reloads_the_node_on_every_path():
+    src = ks.variant_source("K4_fetch_ahead")
+    assert "const float4 a = __ldg" not in src  # the node is carried, not loaded at the loop's top
+    assert src.count("a = __ldg(nd + NODE_F4 * node);") == 1 and src.count("a = na;") == 1
+    assert src.count("float4 a = __ldg(nd), b = __ldg(nd + 1);") == 1
+
+
+def test_nodes12_carries_the_first_ports_fields():
+    """The ``K4_node12`` variant's tables: a leaf's skip link is the next
+    node and its third float4 holds ``first``; an inner node keeps its link."""
+    scene = load_scene(os.path.join(SCENES, "crewmate_phong.toml"), device="cpu")
+    t8 = scene.bvh_octant_nodes
+    t12 = ks.nodes12_from_nodes8(t8)
+    n = t8.shape[1]
+    assert t12.shape == (8, n, 12) and t12.is_contiguous()
+    leaf = t8[..., 7] > 0
+    assert torch.equal(t12[..., [0, 1, 2, 4, 5, 6, 7]], t8[..., [0, 1, 2, 4, 5, 6, 7]])
+    assert torch.equal(t12[..., 3][leaf], torch.arange(1, n + 1.0).expand(8, n)[leaf])
+    assert torch.equal(t12[..., 3][~leaf], t8[..., 3][~leaf])
+    assert torch.equal(t12[..., 8][leaf], t8[..., 3][leaf]) and (t12[..., 8][~leaf] == 0).all()
+    assert (t12[..., 9:] == 0).all()
+    # In the tree's own order they are the first port's table (which holds
+    # -1 as an inner node's ``first``; no walk reads it).
+    own = ks.nodes12_from_nodes8(scene.bvh_binary_nodes8[None].expand(8, n, 8))[0]
+    first_port = scene.bvh_binary_nodes
+    assert torch.equal(own[:, :8], first_port[:, :8])
+    assert torch.equal(own[first_port[:, 7] > 0], first_port[first_port[:, 7] > 0])
 
 
 def test_variant_source_refuses_a_part_it_cannot_find(monkeypatch):

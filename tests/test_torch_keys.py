@@ -1,8 +1,12 @@
 """The coherence key's plain PyTorch twin (K3) against the JAX package's
 ``_coherence_key`` (its XLA form on the CPU), bit for bit, on ~50k
 flying_unicorn rays: camera rays, random rays (some axis-aligned, to hit
-the 1e-12 guard) and parked rays. Plus the permutation built on it."""
+the 1e-12 guard) and parked rays, with the loader's 32 cut boxes and with
+cuts of 1 and 64 boxes (the CUDA kernel takes 32 with its cut count at
+compile time and any other count at run time; the twin is one loop). Plus
+the permutation built on it."""
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ from raytracer_tpu.ops.bvh import _coherence_key
 from raytracer_tpu_torch.models.camera import camera_rays3
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import keys
+from raytracer_tpu_torch.ops.bvh import treetop_cut
 from tests.torch_cpu import jax_eps, one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
@@ -69,6 +74,29 @@ def test_key_twin_is_bit_equal_to_jax(scenes):
     assert (k[-5000:] >> 30 == 1).all() and (k[:20000] >> 30 == 0).sum() > 1000
     assert len(np.unique((k >> 17) & 0x1FFF)) > 16
     assert len(np.unique((k >> 13) & 7)) == 8
+
+
+@pytest.mark.parametrize("n_cut", [1, 32, 64])
+def test_key_twin_is_bit_equal_to_jax_for_each_cut_count(scenes, n_cut):
+    """The same treetop cut of ``n_cut`` boxes handed to both packages (1:
+    the root alone; 32: the loader's; 64: the most the kernel's table holds)."""
+    ref, port = scenes
+    tree = [getattr(port, k).numpy() for k in ("bvh_lo", "bvh_hi", "bvh_skip", "bvh_first", "bvh_count")]
+    cut = treetop_cut(tree, n_cut)
+    assert len(cut) == n_cut <= keys.KEY_MAX_CUT
+    lo, hi = tree[0][cut], tree[1][cut]
+    if n_cut == 32:
+        np.testing.assert_array_equal(lo, port.bvh_cut_lo.numpy())
+    ref_n = ref.replace(bvh_cut_lo=jnp.asarray(lo), bvh_cut_hi=jnp.asarray(hi))
+    port_n = dataclasses.replace(port, bvh_cut_lo=torch.from_numpy(lo), bvh_cut_hi=torch.from_numpy(hi))
+    ro, rd = _rays(port, np.random.default_rng(7 + n_cut))
+    ro, rd = ro[::3], rd[::3]
+    want = np.asarray(_coherence_key(ref_n, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS)))
+    got = keys.coherence_key_twin(port_n, torch.from_numpy(ro), torch.from_numpy(rd), EPS).numpy()
+    np.testing.assert_array_equal(got, want)
+    entries = np.unique((got >> 17) & 0x1FFF)
+    assert entries.max() < n_cut and len(entries) > min(n_cut, 16) // 2
+    assert keys._key_table(port_n).shape == (n_cut + 1, 6)
 
 
 def test_key_accepts_soa_and_array_layouts(scenes):
