@@ -24,10 +24,33 @@ Then drives the port's three main paths the way a user would:
   ``RT_BVH_KERNEL=binary`` (the skip-link walk K4), each also served, and
   cornell_box with MIS at 64 spp against ``examples/cornell_box_mis.png``.
 
+Then the rest of what the port does, each at the reference's 600x450:
+
+- ``[simple]`` the lockstep engine (``engine="simple"``) on cornell_box at
+  64 spp against ``examples/cornell_box.png``, its wall beside K1's frame;
+- ``[checkpoint]`` cornell_box to 256 spp with a cancel after two of the
+  four chunks, a save, a load and a resume: the sums of the uninterrupted
+  render on every element;
+- ``[sharded]`` row bands over ``[cuda:0, cuda:0]`` (the one card twice:
+  the whole multi-device path): each device band of a cornell_box band
+  equal to the plain band function, and the flying_unicorn frame (and the
+  crewmate_phong frame under K4) equal to the plain renderer's on every
+  pixel;
+- ``[trace]`` a flying_unicorn frame under ``device_trace`` into
+  ``chiprun_out/trace``: ``tools.top_ops`` finds the K2 and K3 kernels by
+  name as often as the wrappers counted, and prints the top device kernels,
+  the top host ops and the device's busy share;
+- ``[parity]`` ``tools.parity`` on flying_unicorn and crewmate_phong;
+- ``[bench]`` ``bench_torch.py``'s run functions (three timed renders a
+  config; the cornell MIS reading stays the ``[time]`` line's), each with
+  its own launch counts: a megakernel config and the progressive run must
+  launch K1, a mesh config and the served run K2 and K3;
+- ``[entry]`` the band step of ``__graft_entry_torch__.entry()``.
+
 Each path runs with every launch count set to 0 just before it and read
 just after, and fails if one of its kernels was not launched. Every phase
 raises on failure, so the exit code is non-zero. Without CUDA it exits
-non-zero at once.
+non-zero at once. ``[seconds]`` lines give each phase's time.
 
 Last come the times: each kernel per launch at the main path's shapes and
 per frame, beside its plain twin and its bound (the larger of its
@@ -46,6 +69,7 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -59,6 +83,10 @@ SCENES = ("cornell_box", "cubes")
 # (examples/cornell_box.png mean 112.16, examples/cubes.png mean 113.79).
 IMAGE_MEAN = {"cornell_box": (110.7, 113.7), "cubes": (112.3, 115.3)}
 IMAGE_MAD_MAX = 16.0
+# cornell_box 256 spp against the 64 spp bound: the per-subpixel clamp lets
+# the mean rise with the sample count (+1.24 from 64 to 256 spp at 120x90 on
+# the CPU twin).
+CHECKPOINT_MEAN_RISE = 1.5
 # flying_unicorn 600x450 16 spp against examples/flying_unicorn.png (a 16 spp
 # render, mean 108.99): the mean within these bounds, and the MAD at most the
 # MAD between two port renders at seeds 0 and 1 plus this margin.
@@ -262,15 +290,30 @@ def main() -> int:
     from raytracer_tpu_torch.ops import keys
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops.intersect import scene_precompute
-    from raytracer_tpu_torch.render.renderer import Renderer
+    from raytracer_tpu_torch.parallel.mesh import ShardedRenderer
+    from raytracer_tpu_torch.render.checkpoint import RenderCheckpoint, render_with_checkpoint
+    from raytracer_tpu_torch.render.renderer import Renderer, finalize
     from raytracer_tpu_torch.server.app import RenderJob, Server
     from raytracer_tpu_torch.server.wire import parse_chunk, parse_chunks
     from raytracer_tpu_torch.tools.kernel_steps import SPACER_CYCLES as RUN_SPACER
+    from raytracer_tpu_torch.tools import parity, top_ops
     from raytracer_tpu_torch.tools.kernel_steps import card, event_ms, ptxas_lines, scene_rays
     from raytracer_tpu_torch.utils.png import read_png
+    from raytracer_tpu_torch.utils.timing import device_trace
 
     def zero_counts() -> None:
         mk.LAUNCHES = keys.LAUNCHES = bt.LAUNCHES = bb.LAUNCHES = 0
+
+    def launch_counts() -> dict:
+        return {"K1": mk.LAUNCHES, "K2": bt.LAUNCHES, "K3": keys.LAUNCHES, "K4": bb.LAUNCHES}
+
+    clock = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"[seconds] {phase}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
 
     # 1) card
     smi = card()
@@ -288,6 +331,7 @@ def main() -> int:
         for line in ptxas_lines(log) or ["built before this run: no ptxas output"]:
             print(f"[ptxas] {src}: {line}", flush=True)
 
+    lap("card and build")
     cfg = RenderConfig()
     w = cfg.width
     scenes = {s: load_scene(os.path.join(ROOT, "scenes", f"{s}.toml"), device="cuda") for s in SCENES}
@@ -335,6 +379,7 @@ def main() -> int:
               f"equal to {len(bands)} one-band launches on every lane: {same_bands}", flush=True)
         check(same_bands, f"{s}: the all-bands launch differs from the one-band launches")
 
+    lap("K1 against its twin")
     # 4) K3 and K2 against their twins on flying_unicorn rays
     t0 = time.perf_counter()
     uni = load_scene(os.path.join(ROOT, "scenes", "flying_unicorn.toml"), device="cuda")
@@ -412,9 +457,11 @@ def main() -> int:
                   f"nodes, {v['leaves'] / n_r:.4f} leaves, {v['tris'] / n_r:.3f} real leaf triangles, "
                   f"{v['cand'] / n_r:.3f} candidates (t could still win)", flush=True)
 
+    lap("K2, K3, K4 against their twins, visits")
     # 5) the megakernel path, offline (counts from here to the end of phase 6)
     zero_counts()
     k1_per_frame = {}
+    k1_render = {}
     for s in SCENES:
         before = mk.LAUNCHES
         r = Renderer(scenes[s], RenderConfig(), device="cuda")
@@ -435,6 +482,7 @@ def main() -> int:
         lo, hi = IMAGE_MEAN[s]
         check(img.shape == (450, 600, 3) and img.dtype == np.uint8, f"{s}: image {img.shape}")
         k1_per_frame[s] = mk.LAUNCHES - before
+        k1_render[s] = (wall, rays)
         check(k1_per_frame[s] == 1, f"{s}: the frame took {k1_per_frame[s]} K1 launches, not one")
         check(lo <= mean <= hi, f"{s}: image mean {mean:.3f} outside [{lo}, {hi}]")
         check(mad < IMAGE_MAD_MAX, f"{s}: MAD {mad:.3f} >= {IMAGE_MAD_MAX}")
@@ -481,10 +529,11 @@ def main() -> int:
     print(f"[launches] megakernel path: {launches}", flush=True)
     check(launches["K1"] > 0, "the megakernel path did not launch K1")
 
+    lap("megakernel path")
     # 7) the BVH path, offline: flying_unicorn 600x450 16 spp, seeds 0 and 1
     zero_counts()
     ref = read_png(os.path.join(ROOT, "examples", "flying_unicorn.png")).astype(np.float64)
-    imgs = {}
+    imgs, rays_by_seed = {}, {}
     for sd in (0, 1):
         r = Renderer(uni, RenderConfig(seed=sd), device="cuda")
         check(r.engine == "regen", f"flying_unicorn: select_band_engine gave {r.engine!r}")
@@ -492,7 +541,7 @@ def main() -> int:
         t0 = time.perf_counter()
         imgs[sd] = img = r.render_image(16)
         wall = time.perf_counter() - t0
-        rays = r.rays_traced()
+        rays_by_seed[sd] = rays = r.rays_traced()
         mean = float(img.mean())
         mad = float(np.abs(img.astype(np.float64) - ref).mean())
         print(
@@ -504,6 +553,7 @@ def main() -> int:
         )
         check(img.shape == (450, 600, 3) and np.isfinite(img).all(), "flying_unicorn: bad image")
     unicorn_wall, unicorn_rays_n = wall, rays
+    unicorn_frame, unicorn_rays0 = imgs[0], rays_by_seed[0]
     mean0 = float(imgs[0].mean())
     mad0 = float(np.abs(imgs[0].astype(np.float64) - ref).mean())
     mad01 = float(np.abs(imgs[0].astype(np.float64) - imgs[1].astype(np.float64)).mean())
@@ -550,6 +600,7 @@ def main() -> int:
     print(f"[launches] BVH path: K2={launches['K2']} K3={launches['K3']}", flush=True)
     check(launches["K2"] > 0 and launches["K3"] > 0, "the BVH path did not launch K2 and K3")
 
+    lap("BVH path")
     # 9) the Phong/MIS path: crewmate_phong offline at 64 spp (default
     # traversal), at 16 spp under each traversal variant, offline and
     # served, then cornell_box with MIS (counts from here to the end of 9)
@@ -637,6 +688,211 @@ def main() -> int:
     print(f"[launches] Phong/MIS path: {path3}", flush=True)
     check(min(path3.values()) > 0, "the Phong/MIS path did not launch K2, K3 and K4")
     launches["K4"] = path3["K4"]
+    lap("Phong/MIS path")
+
+    # 9b) the lockstep engine: cornell_box 600x450 64 spp with engine="simple"
+    # (plain PyTorch on the card; twice, the first render loads its ops)
+    ref = read_png(os.path.join(ROOT, "examples", "cornell_box.png")).astype(np.float64)
+    r = Renderer(scenes["cornell_box"], RenderConfig(engine="simple"), device="cuda")
+    check(r.engine == "simple" and r.plan(64) == (50, 16, 1), f"simple: engine {r.engine!r}, plan {r.plan(64)}")
+    walls = []
+    for _ in range(2):
+        r.ray_counts.clear()
+        t0 = time.perf_counter()
+        img = r.render_image(64)
+        walls.append(time.perf_counter() - t0)
+    rays = r.rays_traced()
+    mean, mad = float(img.mean()), float(np.abs(img - ref).mean())
+    k1_wall, k1_rays = k1_render["cornell_box"]
+    print(f"[simple] cornell_box 600x450 64spp engine=simple: 9 bands of 1.92M lanes, mean={mean:.3f} "
+          f"(ref {ref.mean():.3f}) MAD={mad:.3f} wall={walls[1]:.4f} s (first render {walls[0]:.4f} s) rays={rays} "
+          f"{rays / walls[1] / 1e6:.1f} Mrays/s; K1's frame: {k1_wall:.4f} s, {k1_rays / k1_wall / 1e6:.1f} Mrays/s "
+          f"({walls[1] / k1_wall:.1f}x) | {smi}", flush=True)
+    lo, hi = IMAGE_MEAN["cornell_box"]
+    check(img.shape == (450, 600, 3), f"simple: image {img.shape}")
+    check(lo <= mean <= hi, f"simple: image mean {mean:.3f} outside [{lo}, {hi}]")
+    check(mad < IMAGE_MAD_MAX, f"simple: MAD {mad:.3f} >= {IMAGE_MAD_MAX}")
+    lap("simple")
+
+    # 9c) checkpoint and resume: cornell_box to 256 spp, four chunks of 16
+    # samples over 9 bands; a chunk asks cancelled() ten times.
+    zero_counts()
+    r = Renderer(scenes["cornell_box"], RenderConfig(), device="cuda")
+    check(r.plan(256) == (50, 16, 4), f"checkpoint: plan {r.plan(256)}")
+    t0 = time.perf_counter()
+    whole = render_with_checkpoint(r, "cornell_box", 256)
+    whole_s = time.perf_counter() - t0
+    asked = [0]
+
+    def after_two_chunks() -> bool:
+        asked[0] += 1
+        return asked[0] > 20
+
+    part = render_with_checkpoint(r, "cornell_box", 256, cancelled=after_two_chunks)
+    check(part.num_samples == 32, f"checkpoint: cancelled at {part.num_samples} samples, not 32")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cornell.npz")
+        part.save(path)
+        size = os.path.getsize(path)
+        loaded = RenderCheckpoint.load(path, "cornell_box", r.cfg)
+    t0 = time.perf_counter()
+    done = render_with_checkpoint(r, "cornell_box", 256, checkpoint=loaded)
+    resume_s = time.perf_counter() - t0
+    same = bool(np.array_equal(done.sums, whole.sums))
+    mean = float(done.image().mean())
+    path_launches = {"checkpoint": launch_counts()}
+    plain_mean = float(r.render_image(256).mean())
+    print(f"[checkpoint] cornell_box 600x450 256spp: uninterrupted {whole_s:.4f} s; cancelled after 2 of 4 chunks "
+          f"({part.num_samples} samples), saved ({size} bytes), loaded, resumed in {resume_s:.4f} s to "
+          f"{done.num_samples} samples; sums equal on every element: {same}; image mean {mean:.3f} "
+          f"(render_image(256): {plain_mean:.3f}); K1 launches {path_launches['checkpoint']['K1']} | {smi}", flush=True)
+    check(done.num_samples == 64 and same, "checkpoint: the resumed sums differ from the uninterrupted render's")
+    check(np.array_equal(done.image(), finalize(whole.sums, 64)[::-1]), "checkpoint: image() is not finalize of the sums")
+    # The subpixels are clamped before they are averaged, so the mean rises
+    # with the sample count: IMAGE_MEAN is the 64 spp bound, widened upward by
+    # CHECKPOINT_MEAN_RISE for 256 spp, and the plain 256 spp frame is the
+    # closer yardstick (other salts, the same estimator).
+    check(lo <= mean <= hi + CHECKPOINT_MEAN_RISE,
+          f"checkpoint: image mean {mean:.3f} outside [{lo}, {hi + CHECKPOINT_MEAN_RISE}]")
+    check(abs(mean - plain_mean) < 0.5, f"checkpoint: image mean {mean:.3f} against render_image(256)'s {plain_mean:.3f}")
+    check(path_launches["checkpoint"]["K1"] == 72,
+          f"checkpoint: {path_launches['checkpoint']['K1']} K1 launches, not 36 + 18 + 18")
+    lap("checkpoint")
+
+    # 9d) row bands over [cuda:0, cuda:0]: the multi-device path on one card
+    dev0 = torch.device("cuda", 0)
+    pair = [dev0, dev0]
+    sr = ShardedRenderer(scenes["cornell_box"], RenderConfig(), pair)
+    rows_s, k_s, passes_s = sr.plan(64)
+    half = rows_s // 2
+    sums, n_rays = sr.render_band_sums(90, rows_s, k_s, passes_s, return_rays=True)
+    total = 0
+    for d in range(2):
+        y0_d = 90 + d * half
+        want, n_d = mk.render_band_mega(scenes["cornell_box"], sr.cfg, y0_d, half, k_s * passes_s,
+                                        mk.band_seed(sr.cfg.seed, y0_d, 0))
+        check(torch.equal(sums[d * half : (d + 1) * half], want),
+              f"sharded: device band {d} differs from the plain band function")
+        total += int(n_d)
+    check(int(n_rays) == total, "sharded: the ray counts do not add up")
+    zero_counts()
+    t0 = time.perf_counter()
+    img = sr.render_image(64)
+    wall = time.perf_counter() - t0
+    mean = float(img.mean())
+    n_k1 = mk.LAUNCHES
+    print(f"[sharded] cornell_box 600x450 64spp over [cuda:0, cuda:0]: bands of 2 x {half} rows, both device bands "
+          f"equal to the plain band function; frame {wall:.4f} s in {n_k1} K1 launches (plain, one launch: "
+          f"{k1_wall:.4f} s), mean={mean:.3f} | {smi}", flush=True)
+    check(lo <= mean <= hi, f"sharded: image mean {mean:.3f} outside [{lo}, {hi}]")
+    check(n_k1 == 2 * len(list(sr.iter_bands(64))), f"sharded: {n_k1} K1 launches")
+    su = ShardedRenderer(uni, RenderConfig(), pair)
+    k2_0, k3_0 = bt.LAUNCHES, keys.LAUNCHES
+    t0 = time.perf_counter()
+    img = su.render_image(16)
+    wall = time.perf_counter() - t0
+    equal = bool(np.array_equal(img, unicorn_frame))
+    print(f"[sharded] flying_unicorn 600x450 16spp over [cuda:0, cuda:0]: plan {su.plan(16)}, {wall:.4f} s "
+          f"(plain {unicorn_wall:.4f} s), K2 launches {bt.LAUNCHES - k2_0}, K3 launches "
+          f"{keys.LAUNCHES - k3_0}, equal to the plain frame on every pixel: {equal} | {smi}", flush=True)
+    check(equal, "sharded: the flying_unicorn frame differs from the plain renderer's")
+    check(su.rays_traced() == unicorn_rays0, "sharded: the flying_unicorn ray count differs")
+    img = with_variant("binary", lambda: ShardedRenderer(crew, RenderConfig(), pair).render_image(16))
+    equal = bool(np.array_equal(img, variant_imgs["binary"]))
+    print(f"[sharded] crewmate_phong 600x450 16spp RT_BVH_KERNEL=binary over [cuda:0, cuda:0]: K4 launches "
+          f"{bb.LAUNCHES}, equal to the plain K4 frame on every pixel: {equal}", flush=True)
+    check(equal, "sharded: the crewmate_phong K4 frame differs from the plain renderer's")
+    path_launches["sharded"] = launch_counts()
+    check(min(path_launches["sharded"].values()) > 0,
+          f"the sharded path did not launch every kernel: {path_launches['sharded']}")
+    lap("sharded")
+
+    # 9e) a traced flying_unicorn frame, summarized by tools.top_ops
+    trace_dir = os.path.join(ROOT, "chiprun_out", "trace")
+    os.makedirs(trace_dir, exist_ok=True)
+    for old in os.listdir(trace_dir):
+        if ".trace.json" in old:
+            os.remove(os.path.join(trace_dir, old))
+    zero_counts()
+    r = Renderer(uni, RenderConfig(), device="cuda")
+    t0 = time.perf_counter()
+    with device_trace(trace_dir, "cuda"):
+        img = r.render_image(16)
+    wall = time.perf_counter() - t0
+    traced = path_launches["trace"] = launch_counts()
+    check(np.array_equal(img, unicorn_frame), "trace: the traced frame differs from the plain one")
+    events = top_ops.load_trace_events(trace_dir)
+    device_events = top_ops.by_category(events, top_ops.DEVICE_CATS)
+    check(len(device_events) > 0, "trace: the profiler recorded no device slice")
+    for kname, kernel in (("K2", "bvh8_kernel"), ("K3", "key_kernel")):
+        found, found_us = top_ops.summarize(device_events, like=kernel)
+        n_found = sum(row[2] for row in found)
+        print(f"[trace] {kname} {kernel}: {n_found} slices, {found_us / 1e3:.2f} ms in the trace; the wrapper "
+              f"counted {traced[kname]} launches", flush=True)
+        check(n_found == traced[kname] > 0, f"trace: {n_found} {kernel} slices for {traced[kname]} launches")
+    busy_us, window_us = top_ops.device_busy(events)
+    files = os.listdir(trace_dir)
+    print(f"[trace] flying_unicorn 600x450 16spp under device_trace: {wall:.4f} s with the export (untraced "
+          f"{unicorn_wall:.4f} s), {len(events)} slices ({len(device_events)} on the device) in {files}, "
+          f"{sum(os.path.getsize(os.path.join(trace_dir, f)) for f in files)} bytes", flush=True)
+    print(f"[trace] device busy {busy_us / 1e3:.1f} ms of a {window_us / 1e3:.1f} ms window: "
+          f"{busy_us / window_us:.2%} busy, {1 - busy_us / window_us:.2%} idle | {smi}", flush=True)
+    for what, cats in (("device kernels", top_ops.DEVICE_CATS), ("host ops", top_ops.HOST_CATS)):
+        top, total_us = top_ops.summarize(top_ops.by_category(events, cats), top=10)
+        for line in top_ops.format_rows(top, total_us, f"all {what}"):
+            print(f"[trace] {what}: {line}", flush=True)
+    lap("trace")
+
+    # 9f) tools.parity on the card: every kernel against its twin
+    zero_counts()
+    for sname in ("flying_unicorn", "crewmate_phong"):
+        check(parity.run(os.path.join(ROOT, "scenes", f"{sname}.toml"), device="cuda"),
+              f"parity: {sname} kernels disagree with their twins")
+    path_launches["parity"] = launch_counts()
+    check(min(path_launches["parity"][kname] for kname in ("K2", "K3", "K4")) > 0,
+          f"parity launched no kernel: {path_launches['parity']}")
+    lap("parity")
+
+    # 9g) bench_torch's run functions in this process, three timed renders a
+    # config (cornell MIS: the single 256 spp render of the [time] lines)
+    import bench_torch
+
+    bench = {}
+
+    def bench_run(key, kernels, run):
+        # One run function with the counts set to 0 just before it and read
+        # just after: it must launch each of ``kernels`` itself.
+        zero_counts()
+        bench[key] = run()
+        path_launches[f"bench {key}"] = counts = launch_counts()
+        check(min(counts[kname] for kname in kernels) > 0, f"bench: {key} launched no {kernels}: {counts}")
+
+    for key, sname, spp, mis in bench_torch.CONFIGS:
+        if not mis:
+            bench_run(key, ("K1",) if sname in ("cornell_box", "cubes") else ("K2", "K3"),
+                      lambda: bench_torch.run_config(sname, spp, mis, "cuda", repeats=3))
+    bench_run("unicorn_16_serving", ("K2", "K3"), lambda: bench_torch.run_mesh_serving("cuda"))
+    bench_run("progressive_1080p", ("K1",), lambda: bench_torch.run_progressive("cuda"))
+    print("[bench] " + json.dumps({"card": smi, "transport": "in_process", "configs": bench}), flush=True)
+    check(all(np.isfinite(v["wall_s"]) and v["rays"] > 0 for k, v in bench.items() if "rays" in v),
+          "bench: a config without rays or wall")
+    check(bench["progressive_1080p"]["passes_measured"] == 3, "bench: the progressive run measured no three sweeps")
+    lap("bench")
+
+    # 9h) the band step of __graft_entry_torch__.entry()
+    import __graft_entry_torch__ as graft
+
+    step, step_args = graft.entry()
+    sums, n_rays = step(*step_args)
+    torch.cuda.synchronize()
+    print(f"[entry] __graft_entry_torch__.entry(): sums {tuple(sums.shape)} on {sums.device}, mean "
+          f"{sums.mean().item():.4f}, rays {int(n_rays)}", flush=True)
+    check(sums.shape == (8, 64, 4, 3) and sums.is_cuda and torch.isfinite(sums).all().item(),
+          "entry: the band step's sums are not finite [8, 64, 4, 3] on the card")
+    check(int(n_rays) > 0, "entry: no rays counted")
+    for path, counts in path_launches.items():
+        print(f"[launches] {path}: {counts}", flush=True)
+    lap("entry")
 
     # 10) times. K1: the main path's launch (a whole 600x450 frame, 1.08M
     # lanes) at 64 spp beside its twin, and at 256 spp (the headline frame);
@@ -781,6 +1037,7 @@ def main() -> int:
     print(f"[time] cornell_box MIS 600x450 256spp (regen): {wall:.4f} s, {rays / wall / 1e6:.1f} Mrays/s | {smi}",
           flush=True)
 
+    lap("times")
     none = "no single PyTorch call computes this function"
     print(json.dumps({"kernels": [
         {
@@ -790,7 +1047,7 @@ def main() -> int:
             "launches": launches["K1"], "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": k1_bound, "bound_by": k1_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K1"],
-            "redesigned": REDESIGNED["K1"],
+            "redesigned": REDESIGNED["K1"], "launches_by_path": {path: counts["K1"] for path, counts in path_launches.items()},
         },
         {
             "name": "bvh8_kernel", "route": "cuda",
@@ -799,7 +1056,7 @@ def main() -> int:
             "launches": launches["K2"], "max_abs_err": k2_err,
             "ms": k2_ms, "plain_ms": k2_twin_ms, "bound_ms": k2_bound, "bound_by": k2_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K2"],
-            "redesigned": REDESIGNED["K2"],
+            "redesigned": REDESIGNED["K2"], "launches_by_path": {path: counts["K2"] for path, counts in path_launches.items()},
         },
         {
             "name": "key_kernel", "route": "cuda",
@@ -808,7 +1065,7 @@ def main() -> int:
             "launches": launches["K3"], "max_abs_err": key_err,
             "ms": k3_ms, "plain_ms": k3_twin_ms, "bound_ms": k3_bound, "bound_by": k3_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K3"],
-            "redesigned": REDESIGNED["K3"],
+            "redesigned": REDESIGNED["K3"], "launches_by_path": {path: counts["K3"] for path, counts in path_launches.items()},
         },
         {
             "name": "bvh_binary_kernel", "route": "cuda",
@@ -817,7 +1074,7 @@ def main() -> int:
             "launches": launches["K4"], "max_abs_err": k4_err,
             "ms": k4_ms, "plain_ms": k4_twin_ms, "bound_ms": k4_bound, "bound_by": k4_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K4"],
-            "redesigned": REDESIGNED["K4"],
+            "redesigned": REDESIGNED["K4"], "launches_by_path": {path: counts["K4"] for path, counts in path_launches.items()},
         },
     ]}))
     print(smi)

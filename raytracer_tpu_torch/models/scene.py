@@ -279,6 +279,7 @@ def _bvh_fields(bvh, tail: list[dict[str, Any]]) -> dict[str, Any]:
         pack_bvh8_nodes,
         pack_leaf_tris,
         pack_octant_nodes,
+        max_cut_from_env,
         treetop_cut,
     )
 
@@ -296,7 +297,7 @@ def _bvh_fields(bvh, tail: list[dict[str, Any]]) -> dict[str, Any]:
             max_stack=1,
         )
     lo, hi, skip, first, count = bvh
-    cut = treetop_cut(bvh)
+    cut = treetop_cut(bvh, max_cut=max_cut_from_env())
     tri_pts = np.stack(
         [np.stack([t[k] for t in tail]) for k in ("a", "b", "c")], axis=1
     ).astype(np.float64)

@@ -29,17 +29,34 @@ lay the tree out in [.., 128]-lane VMEM tiles. The Hopper kernels
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
 
 # Leaf size and leaf cost of the SAH, as in the JAX package (tuned there for
 # 1024-ray TPU packets; a sweep for per-thread traversal is ROADMAP work).
-MAX_LEAF = 64
-C_LEAF = 3.0
+# RT_MAX_LEAF and RT_C_LEAF in the environment re-sweep them, as they do in
+# ``raytracer_tpu/ops/bvh.py``; they are read when this module is imported.
+# ``build_bvh``, ``ops/bvh_traverse.py`` and ``ops/bvh_binary.py`` read
+# ``MAX_LEAF`` here at each call, so a sweep patches this one name (a scene
+# is traversed at the leaf size it was built with). K4 loads leaf rows four
+# at a time, so a leaf size is a positive multiple of 4.
+MAX_LEAF = int(os.environ.get("RT_MAX_LEAF", "64"))
+if MAX_LEAF < 4 or MAX_LEAF % 4:
+    raise ValueError(f"RT_MAX_LEAF={MAX_LEAF}: the leaf size must be a positive multiple of 4")
+C_LEAF = float(os.environ.get("RT_C_LEAF", "3.0"))
 SAH_BINS = 16
 BVH8_WIDTH = 8
-MAX_CUT = 32  # treetop-cut size of the coherence key
+MAX_CUT = 32  # default treetop-cut size of the coherence key
+
+
+def max_cut_from_env() -> int:
+    """The treetop-cut size the loader builds: RT_MAX_CUT, default
+    ``MAX_CUT``, read at each scene build as ``raytracer_tpu/models/
+    scene.py`` reads it. K3's kernel takes at most
+    ``ops/keys.py::KEY_MAX_CUT`` boxes."""
+    return int(os.environ.get("RT_MAX_CUT", str(MAX_CUT)))
 
 
 def _half_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
@@ -47,7 +64,7 @@ def _half_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
 
 
-def build_bvh(tri_pts: np.ndarray, max_leaf: int = MAX_LEAF):
+def build_bvh(tri_pts: np.ndarray, max_leaf: int | None = None):
     """Binned-SAH BVH over ``tri_pts`` [F,3,3] f64, flattened in DFS
     pre-order with skip links (``skip[i]`` = first node past i's subtree).
 
@@ -56,6 +73,8 @@ def build_bvh(tri_pts: np.ndarray, max_leaf: int = MAX_LEAF):
     leaf order, each leaf padded with -1 to ``max_leaf`` aligned slots, and
     ``first`` indexes that padded layout.
     """
+    if max_leaf is None:
+        max_leaf = MAX_LEAF  # read at call time so a sweep can patch it
     n_tris = tri_pts.shape[0]
     centroids = tri_pts.mean(axis=1)
     tri_lo = tri_pts.min(axis=1)
@@ -261,10 +280,12 @@ def treetop_cut(bvh, max_cut: int = MAX_CUT) -> np.ndarray:
     return np.array(sorted(cut), np.int32)
 
 
-def check_leaf_groups(w_child: np.ndarray, w_count: np.ndarray, max_leaf: int = MAX_LEAF) -> None:
+def check_leaf_groups(w_child: np.ndarray, w_count: np.ndarray, max_leaf: int | None = None) -> None:
     """Raise unless every leaf slot of the wide nodes starts its own
     ``max_leaf``-aligned group and holds 1..max_leaf triangles: K2 encodes
     a leaf by its last row and recovers the group and the count from it."""
+    if max_leaf is None:
+        max_leaf = MAX_LEAF
     leaf = w_count > 0
     if (w_child[leaf] % max_leaf != 0).any() or (w_count[leaf] > max_leaf).any():
         raise ValueError(f"a BVH8 leaf does not start its own {max_leaf}-row group")

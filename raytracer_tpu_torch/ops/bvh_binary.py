@@ -38,7 +38,7 @@ import torch
 from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
-from raytracer_tpu_torch.ops.bvh import MAX_LEAF
+from raytracer_tpu_torch.ops import bvh
 
 INF = 3.0e38
 
@@ -87,7 +87,7 @@ def bvh_binary_twin(
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     if any_hit:
         node = torch.where(resolved0.to(torch.bool), n_nodes, node)  # resolved: no walk
-    slots = torch.arange(MAX_LEAF, device=dev)
+    slots = torch.arange(bvh.MAX_LEAF, device=dev)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
     if visits is not None:
         for k in ("nodes", "leaves", "tris", "cand"):
@@ -203,8 +203,8 @@ def bvh_binary_cuda(
         raise ValueError(f"the scene's octant node table must be [8, nodes, {NODE_FLOATS}], not {tuple(nodes.shape)}")
     # The kernel loads a leaf's rows four at a time: whole groups of
     # MAX_LEAF rows keep the last load inside the table.
-    if tris.dim() != 2 or tris.shape[1] != 12 or tris.shape[0] % MAX_LEAF:
-        raise ValueError(f"the scene's leaf table must be [groups * {MAX_LEAF}, 12], not {tuple(tris.shape)}")
+    if tris.dim() != 2 or tris.shape[1] != 12 or tris.shape[0] % bvh.MAX_LEAF:
+        raise ValueError(f"the scene's leaf table must be [groups * {bvh.MAX_LEAF}, 12], not {tuple(tris.shape)}")
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     idx_out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:

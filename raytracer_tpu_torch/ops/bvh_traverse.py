@@ -35,7 +35,7 @@ import torch
 from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
-from raytracer_tpu_torch.ops.bvh import MAX_LEAF
+from raytracer_tpu_torch.ops import bvh
 from raytracer_tpu_torch.ops.bvh_binary import bvh_binary_cuda, bvh_binary_twin
 from raytracer_tpu_torch.ops.keys import coherence_order
 
@@ -91,7 +91,7 @@ def bvh_traverse_twin(
     ro, rd = as3(ro), as3(rd)
     dev = ro[0].device
     n = ro[0].shape[0]
-    ml = MAX_LEAF
+    ml = bvh.MAX_LEAF
     nodes = scene.bvh8_nodes_flat.to(dev).view(-1, 8, 8)
     tris = scene.bvh_leaf_tris.to(dev).view(-1, ml, 12)
     inv = [_inv_dir(d) for d in rd]
@@ -187,9 +187,9 @@ def _leaf_group_counts(scene: SceneArrays, dev) -> torch.Tensor:
     """Real triangles of each leaf group (0 for a group no leaf starts)."""
     nd = scene.bvh8_nodes_flat.to(dev).view(-1, 8, 8)
     leaf = nd[..., 7] > 0
-    n_groups = scene.bvh_leaf_tris.shape[0] // MAX_LEAF
+    n_groups = scene.bvh_leaf_tris.shape[0] // bvh.MAX_LEAF
     counts = torch.zeros(n_groups + 1, dtype=torch.int64, device=dev)
-    counts[nd[..., 6][leaf].long() // MAX_LEAF] = nd[..., 7][leaf].long()
+    counts[nd[..., 6][leaf].long() // bvh.MAX_LEAF] = nd[..., 7][leaf].long()
     return counts
 
 
@@ -245,7 +245,7 @@ def bvh_traverse_cuda(
         rc = _lib().rt_bvh8_launch(
             *(c.data_ptr() for c in cols), res.data_ptr(),
             nodes.data_ptr(), nodes.shape[0], tris.data_ptr(), tris.shape[0],
-            n, scene.bvh_tri_start, MAX_LEAF, int(any_hit),
+            n, scene.bvh_tri_start, bvh.MAX_LEAF, int(any_hit),
             scene.bvh8_max_stack, eps.tri_tmin, eps.tri_parallel,
             t_out.data_ptr(), idx_out.data_ptr(), stream,
         )

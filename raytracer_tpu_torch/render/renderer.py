@@ -1,4 +1,4 @@
-"""Renderer: row-band scheduling, band dispatch and finalize on one device.
+"""Renderer: row-band scheduling, band dispatch and finalize.
 
 Port of ``raytracer_tpu/render/renderer.py``. The plans are the JAX
 package's, unchanged: band heights divide the image height, and
@@ -8,16 +8,21 @@ megakernel scene renders a whole row band at its full sample count
 takes bands of ``cfg.mesh_rays_per_pass`` lanes, one dispatch per sample,
 summed on the device, and serves in at least ``DELIVERY_BANDS`` bands.
 
-Two engines (``select_band_engine``): the bounce megakernel
-(``ops.megakernel``, K1) and the streaming regen engine
+Three engines (``select_band_engine``): the bounce megakernel
+(``ops.megakernel``, K1), the streaming regen engine
 (``render.wavefront.render_band_regen``, with K3 and the BVH traversal, K2
-or K4, on BVH scenes). A scene on the GPU runs the CUDA kernels, a scene
-on the CPU their plain PyTorch twins. The megakernel's 32-bit band seed is
+or K4, on BVH scenes) and, where ``cfg.engine`` asks for it, the lockstep
+engine ``"simple"`` (``render.integrator.radiance``: k lanes per subpixel,
+so its bands shrink with k). A scene on the GPU runs the CUDA kernels, a
+scene on the CPU their plain PyTorch twins. ``make_renderer`` chooses
+between this one-device ``Renderer`` and ``parallel.mesh.ShardedRenderer``,
+which spreads a band's rows over several devices. The megakernel's 32-bit band seed is
 derived from ``(cfg.seed, y0, salt)`` with the kernel's counter hash (the
 JAX package folds y0 and the salt into a ``jax.random`` key); the regen
 engine keys its draws on the frame slot, so its seed is derived from
 ``(cfg.seed, salt)`` and a pixel's samples do not depend on the band that
-holds it. ``render_image`` renders all the bands of a megakernel frame in
+holds it; the lockstep engine's is derived from ``(cfg.seed, y0, salt)``
+and the pass. ``render_image`` renders all the bands of a megakernel frame in
 one launch (``render_bands_mega``) and finalizes them together; the served
 paths keep one band per dispatch, so a client's first band does not wait
 for the frame.
@@ -35,32 +40,101 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.config import RenderConfig
+from raytracer_tpu_torch.models.camera import camera_rays3
 from raytracer_tpu_torch.models.scene import SceneArrays
-from raytracer_tpu_torch.ops.intersect import scene_precompute
+from raytracer_tpu_torch.ops.intersect import ScenePre, scene_precompute
 from raytracer_tpu_torch.ops.megakernel import (
+    M32,
     band_seed,
     render_band_mega,
     render_bands_mega,
     supports_megakernel,
+    uniform,
 )
+from raytracer_tpu_torch.render.integrator import radiance
 from raytracer_tpu_torch.render.wavefront import render_band_regen
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
+# The values of ``cfg.engine`` the port renders. The JAX package's "fused"
+# (a negative result it keeps for the record) is not ported.
+ENGINES = ("mega", "regen", "simple")
+# The engines whose bands ``parallel.mesh.ShardedRenderer`` spreads over devices.
+SHARDED_ENGINES = ("regen", "mega")
+# Salt that folds the pass number into the lockstep engine's band seed.
+PASS_SALT = 0x9A55
+
+
 def select_band_engine(scene: SceneArrays, cfg: RenderConfig) -> str:
-    """The engine that renders ``scene`` under ``cfg``: ``"mega"`` for the
-    megakernel's subset (``cfg.engine`` "mega", the default: NEE, diffuse
-    and mirror materials, a sphere light, no BVH), else ``"regen"``, which
-    also covers MIS, Phong and mesh lights, as in
-    ``raytracer_tpu/render/renderer.py:134``. The engines not ported
-    ("simple", "fused") raise."""
-    if cfg.engine not in ("mega", "regen"):
+    """The engine that renders ``scene`` under ``cfg``: ``"simple"`` when
+    asked for; ``"mega"`` for the megakernel's subset (``cfg.engine``
+    "mega", the default: NEE, diffuse and mirror materials, a sphere light,
+    no BVH), else ``"regen"``, which also covers MIS, Phong and mesh lights,
+    as in ``raytracer_tpu/render/renderer.py:134``. An engine the port
+    lacks ("fused") raises."""
+    if cfg.engine not in ENGINES:
         raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported (raytracer_tpu_torch has 'mega' and 'regen')"
+            f"engine {cfg.engine!r} is not ported (raytracer_tpu_torch has "
+            + ", ".join(repr(e) for e in ENGINES) + ")"
         )
+    if cfg.engine == "simple":
+        return "simple"
     if cfg.engine == "mega" and supports_megakernel(scene, cfg):
         return "mega"
     return "regen"
+
+
+def _pass_sums(
+    scene: SceneArrays, pre: ScenePre, cfg: RenderConfig,
+    px: torch.Tensor,  # [Np] f32 pixel column
+    py: torch.Tensor,  # [Np] f32 pixel row in RENDER space (0 = bottom)
+    k: int,  # samples per subpixel in this pass
+    seed: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One lockstep pass: trace Np*4*k lanes -> (per-subpixel radiance sums
+    [Np, 4, 3], rays traced). Lane layout [Np, 4, k]: subpixel s sits at
+    (sx, sy) = (s % 2, s // 2). Lane i's camera jitter is draws 0 and 1 of
+    depth 0; ``radiance`` draws from depth 1 on."""
+    n_pix = px.shape[0]
+    n = n_pix * 4 * k
+    dev = px.device
+    s = torch.arange(4, dtype=torch.float32, device=dev)
+
+    def lanes(v: torch.Tensor) -> torch.Tensor:
+        return v.expand(n_pix, 4, k).reshape(n)
+
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    seed_u = seed & M32
+    ro, rd = camera_rays3(
+        scene, cfg.width, cfg.height, cfg.fov_scale,
+        lanes(px[:, None, None]), lanes(py[:, None, None]),
+        lanes((s % 2)[None, :, None]), lanes((s // 2)[None, :, None]),
+        uniform(seed_u, lane, 0, 0), uniform(seed_u, lane, 0, 1),
+    )
+    rad, rays = radiance(scene, pre, cfg, ro, rd, seed)
+    return rad.view(n_pix, 4, k, 3).sum(dim=2), rays
+
+
+def _render_band_impl(
+    scene: SceneArrays, pre: ScenePre, cfg: RenderConfig,
+    y0: int, rows: int, k: int, n_passes: int, seed: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The lockstep engine's band: rows [y0, y0 + rows) at k*n_passes samples
+    per subpixel, pass after pass of k -> (sums f32[rows, W, 4, 3], rays
+    traced i64 scalar), on the scene's device. Pass p draws under
+    ``band_seed(seed, p, PASS_SALT)``."""
+    w = cfg.width
+    dev = scene.device
+    ys = torch.arange(y0, y0 + rows, dtype=torch.float32, device=dev)
+    py = ys[:, None].expand(rows, w).reshape(-1)
+    px = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(rows, w).reshape(-1)
+    sums = torch.zeros((rows * w, 4, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for p in range(n_passes):
+        s, r = _pass_sums(scene, pre, cfg, px, py, k, band_seed(seed, p, PASS_SALT))
+        sums += s
+        rays += r
+    return sums.view(rows, w, 4, 3), rays
 
 
 def finalize_device(sums: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -107,11 +181,41 @@ def _divisor_band(height: int, target: int) -> int:
     return 1
 
 
+def shard_devices(device: str | torch.device = DEFAULT_DEVICE) -> list[torch.device]:
+    """The devices a sharded renderer spreads over when ``device`` is asked
+    for: every visible CUDA device, or the CPU alone."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def make_renderer(
-    scene: SceneArrays, cfg: RenderConfig, device: str | torch.device = DEFAULT_DEVICE
+    scene: SceneArrays, cfg: RenderConfig, device: str | torch.device = DEFAULT_DEVICE,
+    sharded: bool | None = None,
 ) -> "Renderer":
-    """The renderer the server and the tools use: one device (multi-GPU
-    bands are still to port, ROADMAP.md queue 1)."""
+    """The renderer the server and the tools use. ``sharded=None``: spread
+    row bands over every visible CUDA device when there is more than one and
+    the scene renders through the megakernel, whose bands are asynchronous
+    launches that run side by side; else the plain one-device renderer. The
+    JAX package (``raytracer_tpu/render/renderer.py:219``) also shards its
+    regen engine by default; here that engine's bands each occupy the host
+    until they are done, so a sharded regen frame costs more than the plain
+    one and is built only when asked for. ``True`` forces the sharded
+    renderer (ValueError if the engine cannot); ``False`` forces the
+    one-device renderer."""
+    if sharded is None:
+        sharded = (
+            cfg.engine in SHARDED_ENGINES
+            and len(shard_devices(device)) > 1
+            and select_band_engine(scene, cfg) == "mega"
+        )
+    elif sharded and cfg.engine not in SHARDED_ENGINES:
+        raise ValueError("sharded rendering requires engine='regen' or 'mega'")
+    if sharded:
+        from raytracer_tpu_torch.parallel.mesh import ShardedRenderer
+
+        return ShardedRenderer(scene, cfg, shard_devices(device))
     return Renderer(scene, cfg, device=device)
 
 
@@ -125,6 +229,9 @@ class Renderer:
     # Minimum deliveries per served BVH frame, so a client sees pixels
     # before the whole frame is done.
     DELIVERY_BANDS = 4
+    # render_image renders a megakernel frame's bands in one launch; a
+    # renderer whose bands go through its own render_band_sums turns it off.
+    FRAME_IN_ONE_LAUNCH = True
 
     def __init__(
         self,
@@ -136,7 +243,7 @@ class Renderer:
         self.scene = scene.to(self.device)
         self.cfg = cfg or RenderConfig()
         self.engine = select_band_engine(self.scene, self.cfg)
-        self.pre = scene_precompute(self.scene) if self.engine == "regen" else None
+        self.pre = scene_precompute(self.scene) if self.engine != "mega" else None
         self.ray_counts: list[torch.Tensor] = []
 
     # --- scheduling -------------------------------------------------------
@@ -149,19 +256,19 @@ class Renderer:
         if num_samples >= 2**24:
             raise ValueError(f"spp {spp} exceeds the 2^24 samples/subpixel cap")
         if num_samples <= 0:
-            return self._band_rows(), 1, 0
+            return self._band_rows(1), 1, 0
         if self.scene.use_bvh:
             # One sample per dispatch over bands of the mesh lane budget.
-            return self._band_rows(self.cfg.mesh_rays_per_pass), 1, num_samples
+            return self._band_rows(1, self.cfg.mesh_rays_per_pass), 1, num_samples
         k = min(self.K_MAX, _pow2_floor(num_samples))
         n_passes = -(-num_samples // k)
-        return self._band_rows(), k, n_passes
+        return self._band_rows(k), k, n_passes
 
-    def _band_rows(self, budget: int | None = None) -> int:
+    def _band_rows(self, k: int, budget: int | None = None) -> int:
         cfg = self.cfg
-        # One lane per (pixel, subpixel) whatever the sample count: both
-        # engines stream a lane's samples.
-        lanes_per_row = cfg.width * 4
+        # The streaming engines use one lane per (pixel, subpixel) whatever
+        # k is; the lockstep engine uses k lanes per subpixel.
+        lanes_per_row = cfg.width * 4 * (1 if cfg.engine != "simple" else k)
         target = max(1, (budget or cfg.rays_per_pass) // lanes_per_row)
         target = max(target, -(-cfg.height // self.MAX_BANDS))
         return _divisor_band(cfg.height, target)
@@ -174,18 +281,21 @@ class Renderer:
         if self.scene.use_bvh and n_passes > 0 and rows > 1:
             target = max(1, -(-self.cfg.height // self.DELIVERY_BANDS))
             if target < rows:
-                rows = _divisor_band(self.cfg.height, target)
+                rows = self._delivery_rows(target)
         return rows, k, n_passes
+
+    def _delivery_rows(self, target: int) -> int:
+        return _divisor_band(self.cfg.height, target)
 
     def plan_progressive(self, spp: int) -> tuple[int, int, int]:
         """(band_rows, k, n_chunks) for progressive refinement: chunks are
         sized so a full render always delivers several refinements."""
         num_samples = spp // 4
         if num_samples <= 0:
-            return self._band_rows(), 1, 0
+            return self._band_rows(1), 1, 0
         k = min(self.K_MAX, _pow2_floor(max(1, num_samples // 4)))
         n_chunks = -(-num_samples // k)
-        return self._band_rows(), k, n_chunks
+        return self._band_rows(k), k, n_chunks
 
     def iter_bands(self, spp: int, rows: int | None = None) -> Iterator[tuple[int, int]]:
         if rows is None:
@@ -215,6 +325,11 @@ class Renderer:
         if self.engine == "mega":
             sums, rays = render_band_mega(
                 self.scene, self.cfg, y0, rows, k * n_passes,
+                band_seed(self.cfg.seed, y0, salt),
+            )
+        elif self.engine == "simple":
+            sums, rays = _render_band_impl(
+                self.scene, self.pre, self.cfg, y0, rows, k, n_passes,
                 band_seed(self.cfg.seed, y0, salt),
             )
         else:
@@ -252,7 +367,7 @@ class Renderer:
         Returns None when ``cancelled()`` turns true between bands."""
         cfg = self.cfg
         rows, k, n_passes = self.plan(spp)
-        if self.engine == "mega" and n_passes > 0:
+        if self.engine == "mega" and n_passes > 0 and self.FRAME_IN_ONE_LAUNCH:
             if cancelled is not None and cancelled():
                 return None
             y0s = [y0 for y0, _ in self.iter_bands(spp)]
@@ -270,7 +385,8 @@ class Renderer:
             if cancelled is not None and cancelled():
                 return None
             rgb, _ = self.render_rows(y0, spp)
-            # Render rows [y0, y0+rows) land flipped at label rows [H-y0-rows, H-y0).
+            # Render rows [y0, y0+rows) land flipped at label rows [H-y0-rows,
+            # H-y0); a sharded band may overshoot H and is clipped.
             valid = min(rows, cfg.height - y0)
             img[cfg.height - y0 - valid : cfg.height - y0] = rgb[:valid][::-1]
         return img

@@ -1,4 +1,4 @@
-"""Asyncio WebSocket render server on one GPU.
+"""Asyncio WebSocket render server.
 
 Port of ``raytracer_tpu/server/app.py``, speaking the same protocol (JSON
 ``render`` / ``stop_rendering`` in, binary 60-pixel RenderedPixels chunks
@@ -7,9 +7,12 @@ semantics: one render at a time, a job created pre-cancelled, cancellation
 observed between band dispatches, the optional ``width``/``height``,
 ``progressive``, ``stats`` and ``batch`` request fields.
 
-Differences from the JAX server: renders run on one device (``device``,
-CUDA by default; multi-GPU bands are not ported yet), and a render that
-raises is logged and ends the job, so the connection takes the next render.
+Renders run on ``device`` (CUDA by default), with ``sharded`` choosing
+between the one-device renderer and row bands over every visible CUDA
+device (``render.renderer.make_renderer``'s policy). Differences from the
+JAX server: a render that raises is logged and ends the job, so the
+connection takes the next render; a renderer that cannot be built is logged
+and closes the connection.
 """
 
 from __future__ import annotations
@@ -27,7 +30,12 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.config import DEFAULT_PORT, RenderConfig
-from raytracer_tpu_torch.render.renderer import Renderer, finalize_device_dyn, make_renderer
+from raytracer_tpu_torch.render.renderer import (
+    SHARDED_ENGINES,
+    Renderer,
+    finalize_device_dyn,
+    make_renderer,
+)
 from raytracer_tpu_torch.server import wire
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from raytracer_tpu_torch.utils.timing import RenderStats
@@ -259,10 +267,20 @@ class Server:
         width: int = WIDTH,
         height: int = HEIGHT,
         device: str | torch.device = DEFAULT_DEVICE,
+        sharded: bool | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.scenes = {name: s.to(self.device) for name, s in scenes.items()}
         self.base_cfg = cfg or RenderConfig()
+        # The reference's compute parallelism is row bands over its thread
+        # pool (src/server.rs:157-199); here it is row bands over devices.
+        # sharded=None uses every visible CUDA device for a scene the
+        # megakernel renders and the plain renderer otherwise
+        # (make_renderer's policy). Fail fast on an engine that cannot shard:
+        # raising per render request would tear down client connections.
+        if sharded and self.base_cfg.engine not in SHARDED_ENGINES:
+            raise ValueError("sharded serving requires engine='regen' or 'mega'")
+        self.sharded = sharded
         self.width = width
         self.height = height
         self.connections: set[str] = set()
@@ -274,7 +292,9 @@ class Server:
         with self._renderers_lock:
             if key not in self._renderers:
                 cfg = replace(self.base_cfg, width=width, height=height)
-                self._renderers[key] = make_renderer(self.scenes[scene_name], cfg, self.device)
+                self._renderers[key] = make_renderer(
+                    self.scenes[scene_name], cfg, self.device, sharded=self.sharded
+                )
                 while len(self._renderers) > MAX_RENDERERS:
                     # Evict LRU; an in-flight render keeps its own reference.
                     self._renderers.popitem(last=False)
@@ -364,7 +384,11 @@ class Server:
                     progressive = bool(msg.get("progressive", False))
                     want_stats = bool(msg.get("stats", False))
                     batch = bool(msg.get("batch", False))
-                    renderer = self.renderer_for(scene, w, h)
+                    try:
+                        renderer = self.renderer_for(scene, w, h)
+                    except Exception as e:
+                        log.error("[%s] no renderer for %r at %dx%d: %s", cid, scene, w, h, e)
+                        break
 
                     async def run_render() -> None:
                         log.info("[%s] Rendering...", cid)

@@ -5,7 +5,9 @@ src/main.rs:16-55): eagerly load the scenes from the given directory, read
 PORT from the environment (default 8080), serve forever. The default scene
 list is the reference's, ``raytracer_tpu_torch.config.SCENE_NAMES``: cornell_box,
 cubes and flying_unicorn. ``--device`` defaults to ``cuda`` and there is no
-silent CPU fallback.
+silent CPU fallback. With several CUDA devices visible, row bands are
+spread over all of them unless ``--no-shard`` is given. A ``--config`` whose
+``engine`` the port does not have is refused at start-up.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import sys
 
 from raytracer_tpu_torch.config import SCENE_NAMES, port_from_env
 from raytracer_tpu_torch.models.loader import load_all_scenes
+from raytracer_tpu_torch.render.renderer import ENGINES
 from raytracer_tpu_torch.server.app import HEIGHT, WIDTH, Server
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE
 
@@ -31,6 +34,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--scenes", nargs="*", default=None, help="scene names to load")
     parser.add_argument("--config", default=None, help="render config TOML (see config.toml)")
     parser.add_argument("--device", default=DEFAULT_DEVICE, help="torch device (default cuda)")
+    parser.add_argument(
+        "--no-shard", action="store_true",
+        help="render on one device even when several CUDA devices are visible",
+    )
     parser.add_argument(
         "--http-port",
         type=int,
@@ -51,6 +58,13 @@ def main(argv: list[str] | None = None) -> int:
         from raytracer_tpu_torch.config import config_from_toml
 
         cfg = config_from_toml(args.config)
+        if cfg.engine not in ENGINES:
+            print(
+                f"{args.config}: engine {cfg.engine!r} is not one of this server's "
+                f"({', '.join(ENGINES)})",
+                file=sys.stderr,
+            )
+            return 1
 
     names = args.scenes or SCENE_NAMES
     try:
@@ -59,7 +73,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Failed to load scenes from {args.scenes_dir}: {e}", file=sys.stderr)
         return 1
 
-    server = Server(scenes, cfg=cfg, width=args.width, height=args.height, device=args.device)
+    server = Server(
+        scenes, cfg=cfg, width=args.width, height=args.height, device=args.device,
+        sharded=False if args.no_shard else None,
+    )
     if not args.no_warmup:
         server.warmup()  # background; the first client skips the kernel build
     port = args.port if args.port is not None else port_from_env()

@@ -1,12 +1,16 @@
-"""Offline render CLI: scene TOML -> PNG, on one device.
+"""Offline render CLI: scene TOML -> PNG.
 
     python -m raytracer_tpu_torch.tools.render scenes/cornell_box.toml \\
-        --spp 64 --out cornell.png [--mis] [--width 600 --height 450] [--device cuda]
+        --spp 64 --out cornell.png [--mis] [--width 600 --height 450] \\
+        [--device cuda] [--no-shard] [--profile DIR]
 
 Port of ``raytracer_tpu/tools/render.py``. The PNG is written by the
 standard library's zlib (``utils/png.py``), so no imaging package is needed.
 ``RT_BVH_KERNEL=binary`` in the environment traces mesh scenes with the
-binary skip-link walk (K4) instead of the 8-wide traversal (K2).
+binary skip-link walk (K4) instead of the 8-wide traversal (K2). With
+several CUDA devices visible the row bands are spread over all of them
+unless ``--no-shard`` is given. ``--profile DIR`` writes a ``torch.profiler``
+Chrome trace of the render into DIR; ``tools/top_ops.py`` summarizes it.
 """
 
 from __future__ import annotations
@@ -26,13 +30,22 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-depth", type=int, default=None)
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    parser.add_argument(
+        "--no-shard", action="store_true",
+        help="force the single-device renderer even with multiple devices",
+    )
+    parser.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="write a torch.profiler Chrome trace of the render into DIR "
+        "(summarize it with python -m raytracer_tpu_torch.tools.top_ops DIR)",
+    )
     args = parser.parse_args(argv)
 
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.models.loader import load_scene
     from raytracer_tpu_torch.render.renderer import make_renderer
     from raytracer_tpu_torch.utils.png import write_png
-    from raytracer_tpu_torch.utils.timing import RenderStats
+    from raytracer_tpu_torch.utils.timing import RenderStats, device_trace
 
     kwargs = dict(width=args.width, height=args.height, use_mis=args.mis, seed=args.seed)
     if args.max_depth is not None:
@@ -42,8 +55,10 @@ def main(argv=None) -> int:
     stats = RenderStats(pixels=args.width * args.height, samples=args.spp)
     with stats.phase("load"):
         scene = load_scene(args.scene, device=args.device)
-    renderer = make_renderer(scene, cfg, device=args.device)
-    with stats.phase("render"):
+    renderer = make_renderer(
+        scene, cfg, device=args.device, sharded=False if args.no_shard else None
+    )
+    with stats.phase("render"), device_trace(args.profile, renderer.device):
         img = renderer.render_image(args.spp)
     stats.rays = renderer.rays_traced()
 

@@ -195,7 +195,7 @@ def test_twin_counts_its_visits():
     t2, i2 = bb.bvh_binary_twin(*args)
     assert torch.equal(t1, t2) and torch.equal(i1, i2)
     assert visits["nodes"] >= 512 and visits["leaves"] > 0
-    assert visits["leaves"] <= visits["tris"] <= visits["leaves"] * bt.MAX_LEAF
+    assert visits["leaves"] <= visits["tris"] <= visits["leaves"] * bvh.MAX_LEAF
     assert 0 < visits["cand"] <= visits["tris"]
 
 

@@ -176,3 +176,104 @@ def test_all_bands_launch_equals_one_band_launches_on_gpu(cuda):
     one = [mk.mega_cuda(pf, static, y0, 4, n, seed, cuda) for y0, seed in bands]
     assert torch.equal(acc, torch.cat([o[0] for o in one]))
     assert torch.equal(rays, torch.cat([o[1] for o in one]))
+
+
+@pytest.mark.cuda
+def test_simple_engine_renders_on_gpu(cuda):
+    """The lockstep engine on the card agrees with K1's frame in the mean
+    (two streams of random numbers, one estimator)."""
+    scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device=cuda)
+    base = dict(width=64, height=48, rays_per_pass=1 << 14)
+    simple = Renderer(scene, RenderConfig(engine="simple", **base))
+    assert simple.engine == "simple"
+    before = mk.LAUNCHES
+    a = simple.render_image(64)
+    assert mk.LAUNCHES == before  # plain PyTorch on the card, no kernel of its own
+    b = Renderer(scene, RenderConfig(**base)).render_image(64)
+    assert a.shape == (48, 64, 3) and abs(float(a.mean()) - float(b.mean())) < 2.0
+    assert simple.rays_traced() > 64 * 48 * 64
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_gpu(cuda, tmp_path):
+    import numpy as np
+
+    from raytracer_tpu_torch.render.checkpoint import RenderCheckpoint, render_with_checkpoint
+
+    scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device=cuda)
+    cfg = RenderConfig(width=64, height=48, rays_per_pass=1 << 12)
+    r = Renderer(scene, cfg)
+    whole = render_with_checkpoint(r, "cornell_box", 128)
+    calls = {"n": 0}
+
+    def cancelled():
+        calls["n"] += 1
+        return calls["n"] > 5
+
+    part = render_with_checkpoint(r, "cornell_box", 128, cancelled=cancelled)
+    assert 0 < part.num_samples < 32
+    path = str(tmp_path / "ck.npz")
+    part.save(path)
+    done = render_with_checkpoint(r, "cornell_box", 128, checkpoint=RenderCheckpoint.load(path, "cornell_box", cfg))
+    assert done.num_samples == 32
+    np.testing.assert_array_equal(done.sums, whole.sums)
+
+
+@pytest.mark.cuda
+def test_sharded_band_over_one_card_twice(cuda):
+    """``[cuda:0, cuda:0]``: each device band equals the plain band function
+    (the megakernel), and a regen frame equals the plain renderer's."""
+    from raytracer_tpu_torch.parallel.mesh import ShardedRenderer
+
+    scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device=cuda)
+    cfg = RenderConfig(width=64, height=48, rays_per_pass=1 << 14)
+    r = ShardedRenderer(scene, cfg, [cuda, cuda])
+    rows, k, n_passes = r.plan(16)
+    sums, rays = r.render_band_sums(0, rows, k, n_passes, return_rays=True)
+    half = rows // 2
+    total = 0
+    for d in range(2):
+        want, n = mk.render_band_mega(scene, cfg, d * half, half, k * n_passes, mk.band_seed(cfg.seed, d * half, 0))
+        assert torch.equal(sums[d * half : (d + 1) * half], want)
+        total += int(n)
+    assert int(rays) == total
+    unicorn = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    ucfg = RenderConfig(width=64, height=48)
+    a = ShardedRenderer(unicorn, ucfg, [cuda, cuda]).render_image(8)
+    assert (a == Renderer(unicorn, ucfg).render_image(8)).all()
+
+
+@pytest.mark.cuda
+def test_sharded_over_every_visible_card(cuda):
+    """More than one card: every device's band equals the plain band function
+    on the first card (bit for bit across cards), a regen frame equals the
+    plain renderer's, and ``make_renderer`` shards a megakernel scene by
+    default and a regen one only when asked."""
+    from raytracer_tpu_torch.parallel.mesh import ShardedRenderer
+    from raytracer_tpu_torch.render.renderer import make_renderer
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least two CUDA devices")
+    devices = [torch.device("cuda", i) for i in range(n)]
+    scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device=devices[0])
+    cfg = RenderConfig(width=64, height=48, rays_per_pass=1 << 14)
+    r = make_renderer(scene, cfg, devices[0])
+    assert type(r) is ShardedRenderer and r.n_dev == n
+    rows, k, n_passes = r.plan(16)
+    sums, rays = r.render_band_sums(0, rows, k, n_passes, return_rays=True)
+    assert sums.device == devices[0]
+    per = rows // n
+    total = 0
+    for d in range(n):
+        want, n_d = mk.render_band_mega(scene, cfg, d * per, per, k * n_passes, mk.band_seed(cfg.seed, d * per, 0))
+        assert torch.equal(sums[d * per : (d + 1) * per], want), d
+        total += int(n_d)
+    assert int(rays) == total
+    unicorn = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=devices[0])
+    ucfg = RenderConfig(width=64, height=48)
+    plain = Renderer(unicorn, ucfg, device=devices[0]).render_image(8)
+    assert type(make_renderer(unicorn, ucfg, devices[0])) is Renderer
+    asked = make_renderer(unicorn, ucfg, devices[0], sharded=True)
+    assert type(asked) is ShardedRenderer and asked.n_dev == n
+    assert (asked.render_image(8) == plain).all()

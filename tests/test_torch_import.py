@@ -4,8 +4,9 @@ package ``raytracer_tpu``, nor jax, flax or triton.
 Two checks: importing every module of ``raytracer_tpu_torch`` in a fresh
 interpreter leaves no ``raytracer_tpu``/``raytracer_tpu.*`` module, and no
 jax, flax or triton, in ``sys.modules``; and no source file of the port,
-nor ``chip_smoke.py``, has an import statement of those packages anywhere
-(a lazy import inside a function included).
+nor any of its root scripts (``chip_smoke.py``, ``bench_torch.py``,
+``__graft_entry_torch__.py``), has an import statement of those packages
+anywhere (a lazy import inside a function included).
 """
 
 import ast
@@ -33,6 +34,7 @@ def _module_name(relpath: str) -> str:
 
 
 PORT_FILES = _port_files()
+ROOT_SCRIPTS = ["chip_smoke.py", "bench_torch.py", "__graft_entry_torch__.py"]
 MODULES = tuple(_module_name(f) for f in PORT_FILES)
 
 
@@ -41,7 +43,8 @@ def _forbidden(name: str) -> bool:
 
 
 def test_the_new_copies_are_port_modules():
-    for mod in ("config", "models.obj", "server.wire", "utils.timing"):
+    for mod in ("config", "models.obj", "server.wire", "utils.timing", "render.checkpoint",
+                "parallel.mesh", "tools.top_ops", "tools.parity", "tools.kbench"):
         assert f"{PKG}.{mod}" in MODULES
 
 
@@ -59,7 +62,7 @@ def test_port_imports_no_jax_flax_or_triton():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("relpath", PORT_FILES + ROOT_SCRIPTS)
 def test_no_import_statement_of_the_jax_package(relpath):
     with open(os.path.join(ROOT, relpath)) as fh:
         tree = ast.parse(fh.read(), filename=relpath)
@@ -77,7 +80,7 @@ def test_no_import_statement_of_the_jax_package(relpath):
     assert not bad, f"{relpath} imports {bad}"
 
 
-@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("relpath", PORT_FILES + ROOT_SCRIPTS)
 def test_reads_no_document(relpath):
     """The program runs from a checkout of the program alone: no file of it
     names a ``.md`` document as a path to open."""

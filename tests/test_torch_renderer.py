@@ -74,8 +74,12 @@ def test_engine_gate_raises_outside_the_slice():
     assert select_band_engine(scene, RenderConfig(engine="regen")) == "regen"
     # MIS is the regen engine's, as in raytracer_tpu/render/renderer.py:134.
     assert select_band_engine(scene, RenderConfig(use_mis=True)) == "regen"
+    # The lockstep engine renders when asked for; "fused" is not ported.
+    assert select_band_engine(scene, RenderConfig(engine="simple")) == "simple"
     with pytest.raises(NotImplementedError, match="not ported"):
-        select_band_engine(scene, RenderConfig(engine="simple"))
+        select_band_engine(scene, RenderConfig(engine="fused"))
+    with pytest.raises(NotImplementedError, match="'mega', 'regen', 'simple'"):
+        Renderer(scene, RenderConfig(engine="fused"), device="cpu")
 
 
 @pytest.fixture(scope="module")
