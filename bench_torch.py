@@ -3,7 +3,9 @@ reference's configs, and the two served runs.
 
 The port's counterpart of ``bench.py``, through ``raytracer_tpu_torch``.
 Prints ONE JSON line with ``bench.py``'s keys, plus ``card`` (the card's
-name and power limit as nvidia-smi gives them) and ``transport``.
+name and power limit as nvidia-smi gives them), ``transport``, ``cpu_host``
+(the host CPU's model and core count) and ``cpu_native`` (the three native
+baselines unrounded).
 
 - ``run_config``: the five ``CONFIGS`` through ``Renderer.render_image``.
   One warm-up render (it builds the kernels at first use), then
@@ -34,8 +36,16 @@ Rays are counted as the reference would trace them: a camera ray per
 sample, a shadow ray per live non-specular vertex (culled or not) and a
 continuation ray per lane that passes Russian roulette.
 
-Every ratio against a CPU baseline is null: the port has no native tracer
-and measures no CPU baseline, and none taken on another host is quoted.
+CPU baselines, as ``bench.py:89-116, 354-400`` takes them: ``measure_native_cpu``
+renders with the native reference-style tracer (``utils/native.py::
+cpu_render_band``, one thread per core) on the host that drives the card,
+in every run: cornell_box at the full 600x450 frame, the two mesh scenes
+on rows 200-229, 4 spp, seed 1. ``vs_baseline`` is the headline Mrays/s
+over cornell's, ``vs_native_cpu`` a mesh config's over its scene's. No
+number of ``BASELINE_CPU*.json`` is read: those come from another host.
+``vs_xla_cpu_same_software`` and ``cpu_xla_mrays_per_s`` stay null: they
+are the JAX estimator compiled for the CPU by XLA, which has no
+counterpart in the port.
 
 Runs on CUDA; without it the script exits 1 and prints no result. ``--device
 cpu --width W --height H --spp-scale S`` runs the same code small on the
@@ -75,6 +85,50 @@ def _scene(name: str, device: str):
 def _scaled(spp: int, scale: float) -> int:
     """``spp * scale`` as a multiple of 4, at least 4."""
     return max(4, int(spp * scale) // 4 * 4)
+
+
+def cpu_host() -> str:
+    """The host CPU's model (``/proc/cpuinfo``: its ``model name``, else its
+    vendor, family, model and stepping, or on Arm its implementer and part
+    numbers), machine type and ``os.cpu_count()``."""
+    import platform
+
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for ln in fh:
+                key, _, val = ln.partition(":")
+                fields.setdefault(key.strip().lower(), val.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or fields.get("cpu model") or ""
+    if model in ("", "unknown"):
+        # What identifies the part where the model name is not given.
+        model = " ".join(f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model", "stepping",
+                                                        "cpu implementer", "cpu part") if k in fields)
+    return f"{model or 'model unknown'} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def measure_native_cpu(scene_name: str) -> dict | None:
+    """The native tracer's Mrays/s on ``scene_name`` at ``bench.py``'s
+    shapes (``_measure_native_cpu``), or None for a mesh light."""
+    from raytracer_tpu_torch.utils import native
+
+    scene = _scene(scene_name, "cpu")
+    if scene.use_bvh:
+        y0, rows, spp = 200, 30, 4  # a band through the mesh suffices
+    else:
+        y0, rows, spp = 0, 450, 4
+    threads = os.cpu_count() or 1
+    native.build()  # outside the timed call
+    t0 = time.perf_counter()
+    out = native.cpu_render_band(scene, 600, 450, y0, rows, spp, seed=1, n_threads=threads)
+    dt = time.perf_counter() - t0
+    if out is None:
+        return None
+    rays = out[1]
+    return {"mrays_per_s": rays / dt / 1e6, "rays": rays, "seconds": dt, "threads": threads,
+            "rows": [y0, y0 + rows], "spp": spp, "impl": "native-cpp"}
 
 
 def run_config(
@@ -260,26 +314,35 @@ def run_sharding(devices: list, width: int = 600, height: int = 450, repeats: in
     return out
 
 
-def result(results: dict, card: str, width: int, height: int, spp: int) -> dict:
-    """The JSON object of one run from its per-config results."""
+def result(results: dict, card: str, width: int, height: int, spp: int, cpu: dict, host: str) -> dict:
+    """The JSON object of one run from its per-config results and the
+    native baselines ``cpu`` ({scene: measure_native_cpu(scene)})."""
     headline = results["cornell_256_nee"]
-    for key in ("flying_unicorn_16", "crewmate_phong_16"):
-        results[key]["vs_native_cpu"] = None
+
+    def ratio(mrays: float, base: dict | None, digits: int = 1):
+        return round(mrays / base["mrays_per_s"], digits) if base else None
+
+    for key, scene in (("flying_unicorn_16", "flying_unicorn"), ("crewmate_phong_16", "crewmate_phong")):
+        results[key]["vs_native_cpu"] = ratio(results[key]["mrays_per_s"], cpu[scene])
+    nat, mesh = cpu["cornell_box"], cpu["flying_unicorn"]
     return {
         "metric": f"Mrays/s/chip, cornell_box {width}x{height}@{spp}spp (NEE path)",
         "value": headline["mrays_per_s"],
         "unit": "Mrays/s",
-        # No CPU baseline is measured by the port, so every ratio is null.
-        "vs_baseline": None,
-        "baseline_impl": None,
+        # Against the native reference-style CPU tracer on this run's host.
+        "vs_baseline": ratio(headline["mrays_per_s"], nat),
+        "baseline_impl": "native-cpp reference-style tracer",
+        # JAX on XLA's CPU backend has no counterpart in the port.
         "vs_xla_cpu_same_software": None,
         "wall_clock_to_256spp_s": headline["wall_s"],
         "rays_traced": headline["rays"],
-        "cpu_native_mrays_per_s": None,
-        "cpu_native_mesh_mrays_per_s": None,
+        "cpu_native_mrays_per_s": round(nat["mrays_per_s"], 3) if nat else None,
+        "cpu_native_mesh_mrays_per_s": round(mesh["mrays_per_s"], 4) if mesh else None,
         "cpu_xla_mrays_per_s": None,
         "card": card,
         "transport": "in_process",
+        "cpu_host": host,
+        "cpu_native": cpu,
         "configs": results,
     }
 
@@ -328,7 +391,9 @@ def main(argv=None) -> int:
     results["progressive_1080p"] = run_progressive(args.device, pw, ph, _scaled(1024, args.spp_scale))
     results["unicorn_16_serving"] = run_mesh_serving(
         args.device, args.width, args.height, _scaled(16, args.spp_scale))
-    print(json.dumps(result(results, card, args.width, args.height, _scaled(256, args.spp_scale))))
+    cpu = {s: measure_native_cpu(s) for s in ("cornell_box", "flying_unicorn", "crewmate_phong")}
+    print(json.dumps(result(results, card, args.width, args.height, _scaled(256, args.spp_scale),
+                            cpu, cpu_host())))
     return 0
 
 

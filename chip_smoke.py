@@ -1,14 +1,17 @@
 """Smoke test of the PyTorch + CUDA port on one GPU: ``python3 chip_smoke.py``.
 
 Builds the port's four kernels from ``raytracer_tpu_torch/ops/csrc`` (one
-nvcc each, all at once) and prints what ``-Xptxas -v`` says of each
-(registers, stack frame, spills). Holds each kernel against its plain
-PyTorch twin on the card: K1 on a cornell_box and a cubes band, and its
-all-bands frame launch against the bands launched one by one; K2 and K4 at
-every ray class and width of the main path; K3 on every class (and, with a
-shorter cut, through its run-time cut count). Counts, with
-the twins, the visits of the BVH walks and the rays of K1 that the bounds
-below rest on.
+nvcc each) and the native host library from ``native/*.cpp`` (g++), all at
+once, and prints what ``-Xptxas -v`` says of each kernel (registers, stack
+frame, spills). ``[native]`` holds the C++ OBJ parser against the numpy one
+on every asset, times the unicorn's load with each, and measures the
+native CPU baselines of ``bench_torch.py`` on this host. Holds each kernel
+against its plain PyTorch twin on the card: K1 on a cornell_box and a cubes
+band, and its all-bands frame launch against the bands launched one by one;
+K2 and K4 at every ray class and width of the main path; K3 on every class
+(and, with a shorter cut, through its run-time cut count; with 256 boxes,
+through its device table). Counts, with the twins, the visits of the BVH
+walks and the rays of K1 that the bounds below rest on.
 Then drives the port's three main paths the way a user would:
 
 - the megakernel path (K1): offline ``Renderer.render_image`` of
@@ -26,6 +29,14 @@ Then drives the port's three main paths the way a user would:
 
 Then the rest of what the port does, each at the reference's 600x450:
 
+- ``[fused]`` the fused-trace engine (``engine="fused"``): K3, K2 and K4
+  against their twins on its double-width batch (1.08M sorted bounce rays
+  and 1.08M bounded shadow rays, a third parked with cap 0); flying_unicorn
+  16 spp equal to the regen frame (rays, a dispatch's sums, every pixel)
+  with one K3 and one K2 launch per trace, its wall beside regen's (medians
+  of 3 alternated runs), and served equal to ``render_image(16)``;
+  crewmate_phong under ``RT_BVH_KERNEL=binary`` (K4, no K2) equal to the
+  regen K4 frame; cornell_box equal to regen (no kernel);
 - ``[simple]`` the lockstep engine (``engine="simple"``) on cornell_box at
   64 spp against ``examples/cornell_box.png``, its wall beside K1's frame;
 - ``[checkpoint]`` cornell_box to 256 spp with a cancel after two of the
@@ -55,7 +66,8 @@ non-zero at once. ``[seconds]`` lines give each phase's time.
 Last come the times: each kernel per launch at the main path's shapes and
 per frame, beside its plain twin and its bound (the larger of its
 operations over the card's f32 peak and its bytes over the memory rate,
-from this run's inputs and counts).
+from this run's inputs and counts); K2, K4 and K3 on the fused engine's
+2.16M-ray batch, and the fused frames' breakdowns beside regen's.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -100,6 +112,9 @@ CREWMATE_MEAN = (105.29, 108.29)
 # of pixels (a tie or a slab rounding can send one path elsewhere; the
 # draws keyed on slot and iteration keep that to the pixel).
 VARIANT_PIXEL_SHARE = 0.999
+# The fused batch: a third of its shadow half parked with cap 0, as lanes
+# without a shadow ray are.
+FUSED_PARKED_EVERY = 3
 # cornell_box with MIS, 600x450 64 spp, against examples/cornell_box_mis.png
 # (a 64 spp render, mean 112.50): the mean within these bounds and the MAD
 # below IMAGE_MAD_MAX.
@@ -298,8 +313,12 @@ def main() -> int:
     from raytracer_tpu_torch.tools.kernel_steps import SPACER_CYCLES as RUN_SPACER
     from raytracer_tpu_torch.tools import parity, top_ops
     from raytracer_tpu_torch.tools.kernel_steps import card, event_ms, ptxas_lines, scene_rays
+    from raytracer_tpu_torch.utils import native
     from raytracer_tpu_torch.utils.png import read_png
     from raytracer_tpu_torch.utils.timing import device_trace
+    from raytracer_tpu_torch.models import obj as objlib
+    from raytracer_tpu_torch.render import wavefront_fused
+    import bench_torch
 
     def zero_counts() -> None:
         mk.LAUNCHES = keys.LAUNCHES = bt.LAUNCHES = bb.LAUNCHES = 0
@@ -320,18 +339,59 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}", flush=True)
 
-    # 2) build all four sources at once
+    # 2) build all four sources and the native host library at once
     t0 = time.perf_counter()
     sources = ("megakernel", "bvh8", "coherence_key", "bvh_binary")
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as pool:
+        native_job = pool.submit(native.build)
         built = list(pool.map(_build.build, sources))
-    print(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
+        native_lib, native_log = native_job.result()
+    print(f"[build] {len(built)} libraries and the native host library in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     for src, (lib, log) in zip(sources, built):
         print(f"[build] {lib}\n{log.strip()}", flush=True)
         for line in ptxas_lines(log) or ["built before this run: no ptxas output"]:
             print(f"[ptxas] {src}: {line}", flush=True)
+    print(f"[native] built {native_lib} from {native.sources()} with {native.CXX_FLAGS + native.LIBS} "
+          f"{native_log.strip()}", flush=True)
 
     lap("card and build")
+    # 2b) the native host library: the OBJ parser against numpy's on every
+    # asset, the unicorn's load with each parser, and the CPU baselines
+    assets = sorted(f for f in os.listdir(os.path.join(ROOT, "scenes", "assets")) if f.endswith(".obj"))
+    for asset in assets:
+        path = os.path.join(ROOT, "scenes", "assets", asset)
+        t0 = time.perf_counter()
+        got = native.parse_obj_file(path)
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = objlib.load_obj_plain(path)
+        t_np = time.perf_counter() - t0
+        same = all(np.array_equal(g, w) and g.dtype == w.dtype for g, w in zip(got, want))
+        print(f"[native] parse {asset}: {got[0].shape[0]} vertices, {got[2].shape[0]} faces, equal to numpy's "
+              f"parse_obj: {same}; {t_nat:.4f} s native, {t_np:.4f} s numpy", flush=True)
+        check(same, f"native OBJ parse of {asset} differs from parse_obj")
+    uni_path = os.path.join(ROOT, "scenes", "flying_unicorn.toml")
+    t0 = time.perf_counter()
+    load_scene(uni_path, device="cuda")
+    load_native = time.perf_counter() - t0
+    plain_load, objlib.load_obj = objlib.load_obj, objlib.load_obj_plain
+    try:
+        t0 = time.perf_counter()
+        load_scene(uni_path, device="cuda")
+        load_plain = time.perf_counter() - t0
+    finally:
+        objlib.load_obj = plain_load
+    print(f"[load] flying_unicorn: {load_native:.2f} s with the native parser, {load_plain:.2f} s with numpy's",
+          flush=True)
+    cpu_native = {s: bench_torch.measure_native_cpu(s) for s in ("cornell_box", "flying_unicorn", "crewmate_phong")}
+    host = bench_torch.cpu_host()
+    for s, m in cpu_native.items():
+        check(m is not None and m["rays"] > 0 and m["seconds"] > 0, f"native baseline of {s}: {m}")
+        print(f"[native] baseline {s} 600x450 rows {m['rows'][0]}-{m['rows'][1]} {m['spp']}spp seed 1: "
+              f"{m['mrays_per_s']:.4f} Mrays/s, {m['rays']} rays in {m['seconds']:.4f} s, {m['threads']} "
+              f"threads | host {host}", flush=True)
+    lap("native")
     cfg = RenderConfig()
     w = cfg.width
     scenes = {s: load_scene(os.path.join(ROOT, "scenes", f"{s}.toml"), device="cuda") for s in SCENES}
@@ -410,6 +470,25 @@ def main() -> int:
     print(f"[kernel-vs-twin] K3 bounce rays={ro[0].numel()}, 20 cut boxes (run-time count): keys differ on "
           f"{n_diff}", flush=True)
     check(n_diff == 0, f"K3 with 20 cut boxes differs from its twin on {n_diff} rays")
+    # A cut longer than the by-value table (RT_MAX_CUT=256): the kernel reads
+    # its device copy of the table.
+    saved_cut = os.environ.get("RT_MAX_CUT")
+    os.environ["RT_MAX_CUT"] = "256"
+    try:
+        long_cut = load_scene(os.path.join(ROOT, "scenes", "flying_unicorn.toml"), device="cuda")
+    finally:
+        if saved_cut is None:
+            os.environ.pop("RT_MAX_CUT")
+        else:
+            os.environ["RT_MAX_CUT"] = saved_cut
+    n_long = long_cut.bvh_cut_lo.shape[0]
+    k_k = keys.coherence_key_cuda(long_cut, ro, rd, cfg.eps)
+    k_t = keys.coherence_key_twin(long_cut, ro, rd, cfg.eps)
+    n_diff = int((k_k != k_t).sum())
+    n_entries = int(torch.unique((k_k >> 17) & 0x1FFF).numel())
+    print(f"[kernel-vs-twin] K3 bounce rays={ro[0].numel()}, {n_long} cut boxes (RT_MAX_CUT=256, device table): "
+          f"keys differ on {n_diff}; {n_entries} distinct entries", flush=True)
+    check(n_long >= 256 and n_diff == 0, f"K3 with {n_long} cut boxes differs from its twin on {n_diff} rays")
     # K2 on each class at the frame's width, then on the bounce class at the
     # other widths of the main path: the tail-compaction stages of the frame,
     # and a served delivery band with its own stages.
@@ -690,6 +769,153 @@ def main() -> int:
     launches["K4"] = path3["K4"]
     lap("Phong/MIS path")
 
+    # 9a) the fused engine. First K3, K2 and K4 against their twins on its
+    # double-width batch: the frame's unicorn bounce rays, then its bounded
+    # shadow rays with a third parked at cap 0, sorted by the key as
+    # bvh_intersect sorts them.
+    from raytracer_tpu_torch.models import vecmath as vm
+    from raytracer_tpu_torch.render.wavefront import PARK_RD, PARK_RO
+
+    b_ro, b_rd, b_init = classes["bounce"][:3]
+    s_ro, s_rd, s_cap = classes["shadow"][:3]
+    parked = torch.arange(n_frame, device="cuda") % FUSED_PARKED_EVERY == 0
+    f_ro = tuple(torch.cat([a, b]) for a, b in zip(b_ro, vm.where3(parked, PARK_RO, s_ro)))
+    f_rd = tuple(torch.cat([a, b]) for a, b in zip(b_rd, vm.where3(parked, PARK_RD, s_rd)))
+    f_init = torch.cat([b_init, torch.where(parked, 0.0, s_cap)])
+    k_k = keys.coherence_key_cuda(uni, f_ro, f_rd, cfg.eps)
+    k_t = keys.coherence_key_twin(uni, f_ro, f_rd, cfg.eps)
+    n_diff = int((k_k != k_t).sum())
+    print(f"[fused] K3 on the fused batch, {k_k.numel()} rays ({int(parked.sum())} parked): keys differ on "
+          f"{n_diff}; parked rays in the miss group: {bool((k_k[n_frame:][parked] >> 30 == 1).all())}", flush=True)
+    check(n_diff == 0, f"K3 differs from its twin on {n_diff} rays of the fused batch")
+    check(bool((k_k[n_frame:][parked] >> 30 == 1).all()), "a parked shadow ray is not in K3's miss group")
+    order = torch.argsort(k_k, stable=True)
+    fused_args = (uni, tuple(c[order] for c in f_ro), tuple(c[order] for c in f_rd), f_init[order],
+                  torch.zeros(2 * n_frame, dtype=torch.bool, device="cuda"), False, cfg.eps)
+    fused_runs = [("fused batch", fused_args)]
+    k2_err = max(k2_err, hold_traversal("K2", {"": bt.bvh_traverse_cuda}, bt.bvh_traverse_twin, fused_runs))
+    k4_err = max(k4_err, hold_traversal("K4", {"": bb.bvh_binary_cuda}, bb.bvh_binary_twin, fused_runs))
+    t_park = bt.bvh_traverse_cuda(*fused_args)[0][torch.cat([torch.zeros_like(parked), parked])[order]]
+    check(bool((t_park == 0.0).all()), "a parked shadow ray did not end at its cap 0")
+
+    # The unicorn frame on the fused engine: one K3 and one K2 launch a
+    # trace, the regen frame's rays, sums and pixels, and its wall beside
+    # regen's (medians of three alternated runs).
+    traces = [0]
+    real_trace = wavefront_fused.trace_soa
+
+    def counted_trace(*a, **kw):
+        traces[0] += 1
+        return real_trace(*a, **kw)
+
+    fused_cfg = RenderConfig(engine="fused")
+    rf = Renderer(uni, fused_cfg, device="cuda")
+    check(rf.engine == "fused" and rf.plan(16) == (450, 1, 4), f"fused: engine {rf.engine!r}, plan {rf.plan(16)}")
+    zero_counts()
+    wavefront_fused.trace_soa = counted_trace
+    try:
+        t0 = time.perf_counter()
+        fused_img = rf.render_image(16)
+        fused_first = time.perf_counter() - t0
+    finally:
+        wavefront_fused.trace_soa = real_trace
+    path_launches_fused = {"fused flying_unicorn": launch_counts()}
+    fc = path_launches_fused["fused flying_unicorn"]
+    fused_rays = rf.rays_traced()
+    same = bool(np.array_equal(fused_img, unicorn_frame))
+    mean_f = float(fused_img.mean())
+    print(f"[fused] flying_unicorn 600x450 16spp engine=fused: {traces[0]} traces of 2 x 1,080,000 rays, launches "
+          f"{fc}; rays {fused_rays} (regen {unicorn_rays0}); equal to the regen frame on every pixel: {same}; "
+          f"mean {mean_f:.3f}; first render {fused_first:.4f} s | {smi}", flush=True)
+    check(fc["K3"] == fc["K2"] == traces[0] > 0 and fc["K1"] == fc["K4"] == 0,
+          f"fused: {traces[0]} traces but launches {fc}")
+    check(fused_rays == unicorn_rays0, f"fused: {fused_rays} rays, regen {unicorn_rays0}")
+    check(same, "fused: the unicorn frame differs from the regen frame")
+    check(UNICORN_MEAN[0] <= mean_f <= UNICORN_MEAN[1], f"fused: unicorn mean {mean_f:.3f} outside {UNICORN_MEAN}")
+    rg = Renderer(uni, RenderConfig(), device="cuda")
+    sums_f, rays_f = rf.render_band_sums(0, 450, 1, 1, salt=0, return_rays=True)
+    sums_g, rays_g = rg.render_band_sums(0, 450, 1, 1, salt=0, return_rays=True)
+    same_sums = bool(torch.equal(sums_f, sums_g)) and int(rays_f) == int(rays_g)
+    print(f"[fused] flying_unicorn one dispatch (450 rows, 1 sample): sums equal to regen's on every element and "
+          f"rays equal ({int(rays_f)}): {same_sums}", flush=True)
+    check(same_sums, "fused: a dispatch's sums differ from regen's")
+
+    def alternated(scene, n_runs=3):
+        walls = {"regen": [], "fused": []}
+        for _ in range(n_runs):
+            for eng in ("regen", "fused"):
+                r = Renderer(scene, RenderConfig(engine=eng), device="cuda")
+                t0 = time.perf_counter()
+                r.render_image(16)
+                walls[eng].append(time.perf_counter() - t0)
+        return {eng: (sorted(v)[len(v) // 2], v) for eng, v in walls.items()}
+
+    fused_walls = {"flying_unicorn": alternated(uni)}
+    w_f, w_g = fused_walls["flying_unicorn"]["fused"], fused_walls["flying_unicorn"]["regen"]
+    print(f"[fused] flying_unicorn 600x450 16spp wall, median of 3 alternated runs: fused {w_f[0]:.4f} s "
+          f"{[round(x, 4) for x in w_f[1]]}, regen {w_g[0]:.4f} s {[round(x, 4) for x in w_g[1]]}; "
+          f"fused/regen {w_f[0] / w_g[0]:.3f} | {smi}", flush=True)
+
+    # crewmate_phong under RT_BVH_KERNEL=binary: K4 and not K2, equal to the
+    # regen K4 frame; then its walls.
+    def crew_fused():
+        zero_counts()
+        img = Renderer(crew, fused_cfg, device="cuda").render_image(16)
+        return img, launch_counts()
+
+    crew_img, cc = with_variant("binary", crew_fused)
+    path_launches_fused["fused crewmate_phong binary"] = cc
+    share = float((crew_img == variant_imgs["binary"]).all(axis=2).mean())
+    print(f"[fused] crewmate_phong 600x450 16spp RT_BVH_KERNEL=binary engine=fused: launches {cc}; equal to the "
+          f"regen K4 frame on {share:.6%} of pixels", flush=True)
+    check(cc["K4"] > 0 and cc["K2"] == 0 and cc["K3"] == cc["K4"], f"fused crewmate binary: launches {cc}")
+    check(share >= VARIANT_PIXEL_SHARE, f"fused crewmate: equal to regen on {share:.4%} of pixels only")
+    fused_walls["crewmate_phong"] = with_variant("binary", lambda: alternated(crew))
+    w_f, w_g = fused_walls["crewmate_phong"]["fused"], fused_walls["crewmate_phong"]["regen"]
+    print(f"[fused] crewmate_phong 600x450 16spp RT_BVH_KERNEL=binary wall, median of 3 alternated runs: fused "
+          f"{w_f[0]:.4f} s {[round(x, 4) for x in w_f[1]]}, regen {w_g[0]:.4f} s {[round(x, 4) for x in w_g[1]]}; "
+          f"fused/regen {w_f[0] / w_g[0]:.3f} | {smi}", flush=True)
+
+    # cornell_box: no BVH, so no kernel runs on either engine
+    zero_counts()
+    t0 = time.perf_counter()
+    img_f = Renderer(scenes["cornell_box"], fused_cfg, device="cuda").render_image(16)
+    wall_f = time.perf_counter() - t0
+    cn = path_launches_fused["fused cornell_box"] = launch_counts()
+    t0 = time.perf_counter()
+    img_g = Renderer(scenes["cornell_box"], RenderConfig(engine="regen"), device="cuda").render_image(16)
+    wall_g = time.perf_counter() - t0
+    same = bool(np.array_equal(img_f, img_g))
+    print(f"[fused] cornell_box 600x450 16spp engine=fused: no BVH, so no kernel runs (launches {cn}); equal to the "
+          f"regen frame on every pixel: {same}; wall {wall_f:.4f} s (regen {wall_g:.4f} s) | {smi}", flush=True)
+    check(same and not any(cn.values()), f"fused cornell: equal {same}, launches {cn}")
+
+    # the fused unicorn served with the batched transport
+    fserver = Server({"flying_unicorn": uni}, cfg=fused_cfg, device="cuda")
+    fr = fserver.renderer_for("flying_unicorn", 600, 450)
+    msgs = []
+
+    async def send_f(m) -> None:
+        msgs.append(m)
+
+    zero_counts()
+    job = RenderJob(send=send_f)
+    job.mark_running()
+    t0 = time.perf_counter()
+    stopped = asyncio.run(job.run(fr, 16, batch=True))
+    wall = time.perf_counter() - t0
+    path_launches_fused["fused flying_unicorn served"] = sc = launch_counts()
+    served = np.zeros((450, 600, 3), np.uint8)
+    for m in msgs:
+        for _t, x, y, rgb in parse_chunks(m):
+            served[y, x : x + rgb.shape[0]] = rgb
+    same = bool(np.array_equal(served, fused_img))
+    print(f"[fused] flying_unicorn served (batched, engine=fused): {len(msgs)} messages in {wall:.4f} s, launches "
+          f"{sc}, equal to render_image(16): {same} | {smi}", flush=True)
+    check(fr.engine == "fused" and not stopped and same, "fused: the served unicorn differs from render_image(16)")
+    check(sc["K2"] > 0 and sc["K3"] > 0, f"fused served: launches {sc}")
+    lap("fused")
+
     # 9b) the lockstep engine: cornell_box 600x450 64 spp with engine="simple"
     # (plain PyTorch on the card; twice, the first render loads its ops)
     ref = read_png(os.path.join(ROOT, "examples", "cornell_box.png")).astype(np.float64)
@@ -740,7 +966,7 @@ def main() -> int:
     resume_s = time.perf_counter() - t0
     same = bool(np.array_equal(done.sums, whole.sums))
     mean = float(done.image().mean())
-    path_launches = {"checkpoint": launch_counts()}
+    path_launches = dict(path_launches_fused, checkpoint=launch_counts())
     plain_mean = float(r.render_image(256).mean())
     print(f"[checkpoint] cornell_box 600x450 256spp: uninterrupted {whole_s:.4f} s; cancelled after 2 of 4 chunks "
           f"({part.num_samples} samples), saved ({size} bytes), loaded, resumed in {resume_s:.4f} s to "
@@ -855,8 +1081,6 @@ def main() -> int:
 
     # 9g) bench_torch's run functions in this process, three timed renders a
     # config (cornell MIS: the single 256 spp render of the [time] lines)
-    import bench_torch
-
     bench = {}
 
     def bench_run(key, kernels, run):
@@ -982,7 +1206,7 @@ def main() -> int:
     # traversal (K2 or K4) and K3 launch timed by CUDA events recorded
     # directly before and after it, behind a spacer (SPACER_CYCLES): the
     # kernels' own durations. The rest of the wall is glue.
-    def breakdown(scene, spp, label):
+    def breakdown(scene, spp, label, engine="mega"):
         spent = {"trav": [], "K3": []}
 
         def timed(launch, bucket):
@@ -997,7 +1221,7 @@ def main() -> int:
             return run
 
         def render():
-            r = Renderer(scene, RenderConfig(), device="cuda")
+            r = Renderer(scene, RenderConfig(engine=engine), device="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.render_image(spp)
@@ -1029,6 +1253,16 @@ def main() -> int:
     for variant, label in (("widesmem", "K2"), ("binary", "K4")):
         n_trav, _ = with_variant(variant, lambda: breakdown(crew, 16, f"crewmate_phong ({label})"))
     per_frame["K4"] = n_trav
+    # The fused engine: K2, K4 and K3 on its double-width batch (2.16M rays
+    # sorted by the key, a sixth parked), then its frames' breakdowns.
+    k2_fused_ms = event_ms(lambda: bt.bvh_traverse_cuda(*fused_args), 10)
+    k4_fused_ms = event_ms(lambda: bb.bvh_binary_cuda(*fused_args), 10)
+    k3_fused_ms = event_ms(lambda: keys.coherence_key_cuda(uni, f_ro, f_rd, cfg.eps), 20, RUN_SPACER)
+    print(f"[time] fused batch, {2 * n_frame} unicorn rays (bounce + bounded shadow, a sixth parked): K2 "
+          f"{k2_fused_ms:.4f} ms, K4 {k4_fused_ms:.4f} ms (sorted), K3 {k3_fused_ms:.4f} ms (behind a spacer) "
+          f"| {smi}", flush=True)
+    breakdown(uni, 16, "flying_unicorn fused (K2)", "fused")
+    with_variant("binary", lambda: breakdown(crew, 16, "crewmate_phong fused (K4)", "fused"))
     r = Renderer(scenes["cornell_box"], RenderConfig(use_mis=True), device="cuda")
     t0 = time.perf_counter()
     r.render_image(256)
@@ -1047,6 +1281,7 @@ def main() -> int:
             "launches": launches["K1"], "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": twin_ms, "bound_ms": k1_bound, "bound_by": k1_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K1"],
+            "launches_per_fused_frame": 0,
             "redesigned": REDESIGNED["K1"], "launches_by_path": {path: counts["K1"] for path, counts in path_launches.items()},
         },
         {
@@ -1056,6 +1291,7 @@ def main() -> int:
             "launches": launches["K2"], "max_abs_err": k2_err,
             "ms": k2_ms, "plain_ms": k2_twin_ms, "bound_ms": k2_bound, "bound_by": k2_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K2"],
+            "launches_per_fused_frame": fc["K2"],
             "redesigned": REDESIGNED["K2"], "launches_by_path": {path: counts["K2"] for path, counts in path_launches.items()},
         },
         {
@@ -1065,6 +1301,7 @@ def main() -> int:
             "launches": launches["K3"], "max_abs_err": key_err,
             "ms": k3_ms, "plain_ms": k3_twin_ms, "bound_ms": k3_bound, "bound_by": k3_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K3"],
+            "launches_per_fused_frame": fc["K3"],
             "redesigned": REDESIGNED["K3"], "launches_by_path": {path: counts["K3"] for path, counts in path_launches.items()},
         },
         {
@@ -1074,6 +1311,7 @@ def main() -> int:
             "launches": launches["K4"], "max_abs_err": k4_err,
             "ms": k4_ms, "plain_ms": k4_twin_ms, "bound_ms": k4_bound, "bound_by": k4_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K4"],
+            "launches_per_fused_frame": cc["K4"],
             "redesigned": REDESIGNED["K4"], "launches_by_path": {path: counts["K4"] for path, counts in path_launches.items()},
         },
     ]}))

@@ -1,6 +1,8 @@
 """Wavefront OBJ parsing and the ``cube``/``prism`` scene geometry.
 
-The port's own copy of ``raytracer_tpu/models/obj.py``, in numpy alone.
+The port's own copy of ``raytracer_tpu/models/obj.py``. ``load_obj`` parses
+with the native library's C++ parser, as the JAX package's does;
+``parse_obj`` (numpy) is its plain version.
 Reference semantics (src/geometry.rs:777-833): line-oriented; ``v`` ->
 vertex, ``vn`` -> normal, ``f`` -> three ``a/b/c`` tokens of which only the
 first (vertex) index is used, 1-based; everything else is ignored.
@@ -50,6 +52,15 @@ def parse_obj(text: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def load_obj(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Parse an OBJ file with the native host library (``utils/native.py``),
+    as the JAX package's ``load_obj`` does; raises where it cannot be built."""
+    from raytracer_tpu_torch.utils import native
+
+    return native.parse_obj_file(path)
+
+
+def load_obj_plain(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``load_obj`` through the numpy ``parse_obj``."""
     with open(path) as fh:
         return parse_obj(fh.read())
 

@@ -54,8 +54,8 @@ MAX_CUT = 32  # default treetop-cut size of the coherence key
 def max_cut_from_env() -> int:
     """The treetop-cut size the loader builds: RT_MAX_CUT, default
     ``MAX_CUT``, read at each scene build as ``raytracer_tpu/models/
-    scene.py`` reads it. K3's kernel takes at most
-    ``ops/keys.py::KEY_MAX_CUT`` boxes."""
+    scene.py`` reads it. The key takes at most ``ops/keys.py::
+    KEY_CUT_LIMIT`` boxes (8191), as ``treetop_cut`` does."""
     return int(os.environ.get("RT_MAX_CUT", str(MAX_CUT)))
 
 

@@ -9,7 +9,10 @@
 //
 // The (C+1) x 6 table of cut boxes plus the root box is a by-value
 // __grid_constant__ argument (198 floats at C = 32), so it lies in the
-// constant bank. The rays come in as six f32 columns (coalesced 4-byte
+// constant bank, for up to KEY_MAX_CUT boxes. A longer cut (up to the entry
+// field's 8191, KEY_CUT_LIMIT) is read from a device copy of the table
+// through the read-only cache instead (KeyTableDev): every thread of a warp
+// reads the same row, so each load is one broadcast. The rays come in as six f32 columns (coalesced 4-byte
 // loads) and the key goes out as one i32: 28 bytes of device memory per ray
 // (1M rays move 28 MB, ~9 us at 3.35 TB/s). That is not what bounds it: a
 // ray costs C slab tests of 25 FMA-free operations, of which the 10 minima
@@ -25,7 +28,8 @@
 //     uniform loads and used as operands of the subtracts. Unrolled in full
 //     it measured 17-20% slower, with the count at run time 6-7%. Any other
 //     count 1..KEY_MAX_CUT runs the same source with the count at run time
-//     (key_kernel<0>);
+//     (key_kernel<0>), and KEY_MAX_CUT+1..KEY_CUT_LIMIT the same source again
+//     over the device table (key_kernel<0, KeyTableDev>);
 //   - one ray a thread (KEY_RAYS; a block takes KEY_RAYS tiles of KEY_BLOCK
 //     consecutive rays, so that every load stays coalesced): with the count
 //     at compile time the unrolled cuts give the scheduler enough
@@ -49,6 +53,7 @@
 #include <stdint.h>
 
 #define KEY_MAX_CUT 64
+#define KEY_CUT_LIMIT 8191
 #define KEY_STATIC_CUT 32
 #define KEY_BLOCK 256
 #define KEY_RAYS 1
@@ -57,9 +62,24 @@ struct KeyTable {
   float box[KEY_MAX_CUT + 1][6];  // rows 0..C-1: cut boxes; row C: the root box
 };
 
+// The same rows in device memory: tab.box[c][k] loads row c's value k
+// through the read-only cache.
+struct KeyRowsDev {
+  const float* rows;
+  struct Row {
+    const float* p;
+    __device__ __forceinline__ float operator[](int k) const { return __ldg(p + k); }
+  };
+  __device__ __forceinline__ Row operator[](int c) const { return Row{rows + 6 * c}; }
+};
+struct KeyTableDev {
+  KeyRowsDev box;
+};
+
 // NC > 0: the cut count at compile time; NC == 0: n_cut_rt at run time.
-template <int NC>
-__global__ void __launch_bounds__(KEY_BLOCK) key_kernel(const __grid_constant__ KeyTable tab,
+// Table: KeyTable (by value) or KeyTableDev (a device pointer).
+template <int NC, class Table = KeyTable>
+__global__ void __launch_bounds__(KEY_BLOCK) key_kernel(const __grid_constant__ Table tab,
                                                         int n_cut_rt,
                                                         const float* __restrict__ rox,
                                                         const float* __restrict__ roy,
@@ -141,18 +161,26 @@ __global__ void __launch_bounds__(KEY_BLOCK) key_kernel(const __grid_constant__ 
 }
 
 // table is a HOST pointer to (n_cut + 1) * 6 floats, copied into the launch's
-// argument buffer.
-extern "C" int rt_key_launch(const float* table, int n_cut, const float* rox, const float* roy,
-                             const float* roz, const float* rdx, const float* rdy,
-                             const float* rdz, int n, float tri_tmin, int32_t* key,
-                             void* stream) {
-  if (n_cut < 1 || n_cut > KEY_MAX_CUT || n < 0) return (int)cudaErrorInvalidValue;
+// argument buffer when n_cut <= KEY_MAX_CUT; dev_table is the same table in
+// device memory, read when n_cut > KEY_MAX_CUT (it may be null otherwise).
+extern "C" int rt_key_launch(const float* table, const float* dev_table, int n_cut,
+                             const float* rox, const float* roy, const float* roz,
+                             const float* rdx, const float* rdy, const float* rdz, int n,
+                             float tri_tmin, int32_t* key, void* stream) {
+  if (n_cut < 1 || n_cut > KEY_CUT_LIMIT || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
+  const int per_block = KEY_BLOCK * KEY_RAYS;
+  const int blocks = (n + per_block - 1) / per_block;
+  if (n_cut > KEY_MAX_CUT) {
+    if (dev_table == nullptr) return (int)cudaErrorInvalidValue;
+    const KeyTableDev dtab = {{dev_table}};
+    key_kernel<0, KeyTableDev><<<blocks, KEY_BLOCK, 0, (cudaStream_t)stream>>>(
+        dtab, n_cut, rox, roy, roz, rdx, rdy, rdz, n, tri_tmin, key);
+    return (int)cudaGetLastError();
+  }
   KeyTable tab = {};
   for (int r = 0; r <= n_cut; ++r)
     for (int k = 0; k < 6; ++k) tab.box[r][k] = table[6 * r + k];
-  const int per_block = KEY_BLOCK * KEY_RAYS;
-  const int blocks = (n + per_block - 1) / per_block;
   auto kernel = n_cut == KEY_STATIC_CUT ? key_kernel<KEY_STATIC_CUT> : key_kernel<0>;
   kernel<<<blocks, KEY_BLOCK, 0, (cudaStream_t)stream>>>(tab, n_cut, rox, roy, roz, rdx, rdy, rdz,
                                                          n, tri_tmin, key);

@@ -14,10 +14,13 @@ ray, an i32 ``miss<<30 | entry<<17 | octant<<13 | morton12``:
 Three parts, as for K1: the plain PyTorch twin (``coherence_key_twin``),
 the CUDA kernel (``ops/csrc/coherence_key.cu``: the cut loop unrolled over
 the loader's 32 boxes with the table as constant operands, the same source
-with a run-time count for any other; built at first use, counted in
-``LAUNCHES``), and the wrapper
+with a run-time count for any other count up to ``KEY_MAX_CUT``, and again
+over a device copy of the table up to the entry field's ``KEY_CUT_LIMIT``;
+built at first use, counted in ``LAUNCHES``), and the wrapper
 ``coherence_key``, which runs the twin for CPU tensors and the kernel for
-CUDA tensors and never falls back. ``coherence_order`` sorts by the key.
+CUDA tensors and never falls back. Both refuse a cut of more than
+``KEY_CUT_LIMIT`` boxes, whose index would not fit the key's 13-bit field.
+``coherence_order`` sorts by the key.
 """
 
 from __future__ import annotations
@@ -35,8 +38,11 @@ from raytracer_tpu_torch.models.vecmath import as3
 
 # Cut boxes the kernel's by-value table holds (KEY_MAX_CUT in
 # ops/csrc/coherence_key.cu); the loader builds 32 (ops/bvh.py::MAX_CUT),
-# the count the kernel unrolls (KEY_STATIC_CUT there).
+# the count the kernel unrolls (KEY_STATIC_CUT there). A longer cut, up to
+# KEY_CUT_LIMIT (the 13-bit entry field, as ops/bvh.py::treetop_cut), is read
+# from a device copy of the table.
 KEY_MAX_CUT = 64
+KEY_CUT_LIMIT = 8191
 
 # Kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
@@ -45,6 +51,8 @@ _launch_lock = threading.Lock()
 # The host table of each scene, built at its first launch: the copy from the
 # device blocks the host, so it is made once per scene, not once per launch.
 _tables: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+# The device copy of a table of more than KEY_MAX_CUT boxes, per scene.
+_dev_tables: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def _key_table(scene: SceneArrays) -> torch.Tensor:
@@ -56,6 +64,21 @@ def _key_table(scene: SceneArrays) -> torch.Tensor:
         cuts = torch.cat([scene.bvh_cut_lo, scene.bvh_cut_hi], dim=1)
         table = _tables[scene] = torch.cat([cuts, root]).to(torch.float32).cpu().contiguous()
     return table
+
+
+def _dev_table(scene: SceneArrays, dev: torch.device) -> torch.Tensor:
+    """The [C+1, 6] table on the rays' device, made at the scene's first
+    launch with more than ``KEY_MAX_CUT`` boxes."""
+    table = _dev_tables.get(scene)
+    if table is None or table.device != dev:
+        table = _dev_tables[scene] = _key_table(scene).to(dev)
+    return table
+
+
+def check_cut_count(n_cut: int) -> None:
+    """Raise unless the key can name ``n_cut`` cut boxes (1..KEY_CUT_LIMIT)."""
+    if not 1 <= n_cut <= KEY_CUT_LIMIT:
+        raise ValueError(f"{n_cut} cut boxes; the key's entry field takes 1..{KEY_CUT_LIMIT}")
 
 
 def coherence_key_twin(scene: SceneArrays, ro, rd, eps: Epsilons) -> torch.Tensor:
@@ -110,7 +133,7 @@ def _launch_fn():
 
     fn = _build.load_library("coherence_key").rt_key_launch
     fn.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int]  # table, n_cut
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # host table, device table, n_cut
         + [ctypes.c_void_p] * 6  # ro.xyz, rd.xyz
         + [ctypes.c_int, ctypes.c_float]  # n, tri_tmin
         + [ctypes.c_void_p, ctypes.c_void_p]  # key, stream
@@ -123,6 +146,7 @@ def coherence_key_cuda(scene: SceneArrays, ro, rd, eps: Epsilons) -> torch.Tenso
     """Launch the CUDA kernel on the rays' device and current stream: [N] i32.
     Raises on any fault; never falls back."""
     global LAUNCHES
+    check_cut_count(scene.bvh_cut_lo.shape[0])
     ro, rd = as3(ro), as3(rd)
     dev = ro[0].device
     if dev.type != "cuda":
@@ -133,16 +157,15 @@ def coherence_key_cuda(scene: SceneArrays, ro, rd, eps: Epsilons) -> torch.Tenso
         raise ValueError("ray components must be [N] tensors on one device")
     table = _key_table(scene)
     n_cut = table.shape[0] - 1
-    if not 1 <= n_cut <= KEY_MAX_CUT:
-        raise ValueError(f"{n_cut} cut boxes; the kernel takes 1..{KEY_MAX_CUT}")
     key = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return key
+    dev_table = _dev_table(scene, dev).data_ptr() if n_cut > KEY_MAX_CUT else None
     launch = _launch_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
-            table.data_ptr(), n_cut, *(c.data_ptr() for c in cols),
+            table.data_ptr(), dev_table, n_cut, *(c.data_ptr() for c in cols),
             n, eps.tri_tmin, key.data_ptr(), stream,
         )
     if rc != 0:
@@ -154,6 +177,7 @@ def coherence_key_cuda(scene: SceneArrays, ro, rd, eps: Epsilons) -> torch.Tenso
 
 def coherence_key(scene: SceneArrays, ro, rd, eps: Epsilons) -> torch.Tensor:
     """[N] i32 key: the twin for CPU rays, the kernel for CUDA rays."""
+    check_cut_count(scene.bvh_cut_lo.shape[0])
     dev = as3(ro)[0].device
     if dev.type == "cpu":
         return coherence_key_twin(scene, ro, rd, eps)

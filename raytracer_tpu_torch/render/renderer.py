@@ -8,20 +8,22 @@ megakernel scene renders a whole row band at its full sample count
 takes bands of ``cfg.mesh_rays_per_pass`` lanes, one dispatch per sample,
 summed on the device, and serves in at least ``DELIVERY_BANDS`` bands.
 
-Three engines (``select_band_engine``): the bounce megakernel
+Four engines (``select_band_engine``): the bounce megakernel
 (``ops.megakernel``, K1), the streaming regen engine
 (``render.wavefront.render_band_regen``, with K3 and the BVH traversal, K2
-or K4, on BVH scenes) and, where ``cfg.engine`` asks for it, the lockstep
-engine ``"simple"`` (``render.integrator.radiance``: k lanes per subpixel,
-so its bands shrink with k). A scene on the GPU runs the CUDA kernels, a
+or K4, on BVH scenes) and, where ``cfg.engine`` asks for them, the fused
+engine ``"fused"`` (``render.wavefront_fused.render_band_fused``: regen's
+estimator with one trace of twice the width an iteration; NEE only) and the
+lockstep engine ``"simple"`` (``render.integrator.radiance``: k lanes per
+subpixel, so its bands shrink with k). A scene on the GPU runs the CUDA kernels, a
 scene on the CPU their plain PyTorch twins. ``make_renderer`` chooses
 between this one-device ``Renderer`` and ``parallel.mesh.ShardedRenderer``,
 which spreads a band's rows over several devices. The megakernel's 32-bit band seed is
 derived from ``(cfg.seed, y0, salt)`` with the kernel's counter hash (the
 JAX package folds y0 and the salt into a ``jax.random`` key); the regen
-engine keys its draws on the frame slot, so its seed is derived from
-``(cfg.seed, salt)`` and a pixel's samples do not depend on the band that
-holds it; the lockstep engine's is derived from ``(cfg.seed, y0, salt)``
+and fused engines key their draws on the frame slot, so their seed is
+derived from ``(cfg.seed, salt)`` and a pixel's samples do not depend on
+the band that holds it (a fused frame equals the regen frame); the lockstep engine's is derived from ``(cfg.seed, y0, salt)``
 and the pass. ``render_image`` renders all the bands of a megakernel frame in
 one launch (``render_bands_mega``) and finalizes them together; the served
 paths keep one band per dispatch, so a client's first band does not wait
@@ -53,12 +55,12 @@ from raytracer_tpu_torch.ops.megakernel import (
 )
 from raytracer_tpu_torch.render.integrator import radiance
 from raytracer_tpu_torch.render.wavefront import render_band_regen
+from raytracer_tpu_torch.render.wavefront_fused import render_band_fused
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
-# The values of ``cfg.engine`` the port renders. The JAX package's "fused"
-# (a negative result it keeps for the record) is not ported.
-ENGINES = ("mega", "regen", "simple")
+# The values of ``cfg.engine`` the port renders: all of the JAX package's.
+ENGINES = ("mega", "regen", "fused", "simple")
 # The engines whose bands ``parallel.mesh.ShardedRenderer`` spreads over devices.
 SHARDED_ENGINES = ("regen", "mega")
 # Salt that folds the pass number into the lockstep engine's band seed.
@@ -67,18 +69,22 @@ PASS_SALT = 0x9A55
 
 def select_band_engine(scene: SceneArrays, cfg: RenderConfig) -> str:
     """The engine that renders ``scene`` under ``cfg``: ``"simple"`` when
-    asked for; ``"mega"`` for the megakernel's subset (``cfg.engine``
-    "mega", the default: NEE, diffuse and mirror materials, a sphere light,
-    no BVH), else ``"regen"``, which also covers MIS, Phong and mesh lights,
-    as in ``raytracer_tpu/render/renderer.py:134``. An engine the port
-    lacks ("fused") raises."""
+    asked for; ``"fused"`` when asked for without MIS (with MIS: ``"regen"``,
+    as ``raytracer_tpu/render/renderer.py:143-144``; never the megakernel);
+    ``"mega"`` for the megakernel's subset (``cfg.engine`` "mega", the
+    default: NEE, diffuse and mirror materials, a sphere light, no BVH),
+    else ``"regen"``, which also covers MIS, Phong and mesh lights, as in
+    ``raytracer_tpu/render/renderer.py:134``. A name that is none of
+    ``ENGINES`` raises (the JAX package renders it as regen)."""
     if cfg.engine not in ENGINES:
         raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported (raytracer_tpu_torch has "
+            f"engine {cfg.engine!r} is not one of raytracer_tpu_torch's ("
             + ", ".join(repr(e) for e in ENGINES) + ")"
         )
     if cfg.engine == "simple":
         return "simple"
+    if cfg.engine == "fused":
+        return "regen" if cfg.use_mis else "fused"
     if cfg.engine == "mega" and supports_megakernel(scene, cfg):
         return "mega"
     return "regen"
@@ -333,7 +339,8 @@ class Renderer:
                 band_seed(self.cfg.seed, y0, salt),
             )
         else:
-            sums, rays = render_band_regen(
+            band_fn = render_band_fused if self.engine == "fused" else render_band_regen
+            sums, rays = band_fn(
                 self.scene, self.pre, self.cfg, y0, rows, k * n_passes,
                 band_seed(self.cfg.seed, 0, salt),
             )

@@ -91,6 +91,31 @@ def tail_widths(n: int, cfg: RenderConfig, use_bvh: bool) -> list[int]:
     return widths
 
 
+def bounce(scene: SceneArrays, cfg: RenderConfig, mat, is_spec, nrm, o3, depth, valid, beta, u):
+    """Russian roulette and the BSDF (or mirror) bounce of a vertex, with
+    draws 4 (roulette), 5-6 and, for Phong, 7 of ``u(draw)`` -> (wi,
+    pdf_b, p: the survival probability, beta_next, live: the lanes whose
+    path goes on)."""
+    p = torch.where(depth <= cfg.rr_start_depth, 1.0, cfg.rr_survival)
+    cont = valid & (u(4) < p) & (depth < cfg.max_depth)
+    ub = u(5)
+    wi, pdf_b = brdf.sample3(
+        mat, nrm, o3, ub, u(6), u(7) if scene.has_phong else ub,
+        cfg.fix_phong_frame, scene.has_phong,
+    )
+    f_c = brdf.eval_nonspecular3(mat, nrm, o3, wi, scene.has_phong)
+    cos_c = vm.dot3(nrm, wi)
+    w_nonspec = torch.where(
+        (pdf_b > 1e-12)[:, None],
+        f_c * (cos_c / torch.clamp_min(pdf_b, 1e-12))[:, None],
+        0.0,
+    )
+    weight = torch.where(is_spec[:, None], mat.c_s, w_nonspec) / p[:, None]
+    beta_next = beta * weight
+    live = cont & (beta_next > 0.0).any(dim=1)
+    return wi, pdf_b, p, beta_next, live
+
+
 def render_band_regen(
     scene: SceneArrays,
     pre: ScenePre,
@@ -237,23 +262,7 @@ def render_band_regen(
         acc = acc + torch.where(nee[:, None], beta * direct, 0.0)
 
         # 5) Russian roulette and the bounce
-        p = torch.where(depth <= cfg.rr_start_depth, 1.0, cfg.rr_survival)
-        cont = valid & (u(4) < p) & (depth < cfg.max_depth)
-        ub = u(5)
-        wi, pdf_b = brdf.sample3(
-            mat, nrm, o3, ub, u(6), u(7) if scene.has_phong else ub,
-            cfg.fix_phong_frame, scene.has_phong,
-        )
-        f_c = brdf.eval_nonspecular3(mat, nrm, o3, wi, scene.has_phong)
-        cos_c = vm.dot3(nrm, wi)
-        w_nonspec = torch.where(
-            (pdf_b > 1e-12)[:, None],
-            f_c * (cos_c / torch.clamp_min(pdf_b, 1e-12))[:, None],
-            0.0,
-        )
-        weight = torch.where(is_spec[:, None], mat.c_s, w_nonspec) / p[:, None]
-        beta_next = beta * weight
-        live = cont & (beta_next > 0.0).any(dim=1)
+        wi, pdf_b, p, beta_next, live = bounce(scene, cfg, mat, is_spec, nrm, o3, depth, valid, beta, u)
         # A mirror bounce collects the next hit's emission at beta/p. Without
         # MIS a non-specular one collects none (NEE counted the light); with
         # MIS it collects at beta_next times the balance weight.

@@ -6,8 +6,10 @@ PORT from the environment (default 8080), serve forever. The default scene
 list is the reference's, ``raytracer_tpu_torch.config.SCENE_NAMES``: cornell_box,
 cubes and flying_unicorn. ``--device`` defaults to ``cuda`` and there is no
 silent CPU fallback. With several CUDA devices visible, row bands are
-spread over all of them unless ``--no-shard`` is given. A ``--config`` whose
-``engine`` the port does not have is refused at start-up.
+spread over all of them unless ``--no-shard`` is given. A ``--config`` may
+ask for any engine of ``ENGINES`` (``engine = "fused"`` too); one whose
+``engine`` is none of them is refused at start-up (the JAX server renders
+an unknown name as regen).
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
 """Binary wire protocol, byte for byte the reference's.
 
-The port's own copy of ``raytracer_tpu/server/wire.py``, in numpy alone.
+The port's own copy of ``raytracer_tpu/server/wire.py``. ``pack_row`` and
+``pack_rows_batched`` pack with the native library (``utils/native.py``),
+as the JAX package's do; ``pack_row_plain`` and ``pack_rows_batched_plain``
+are their plain Python versions.
 Outgoing pixel message layout (src/server.rs:173-190, as the web client
 reads it at test-client/app.tsx:54-60):
 
@@ -36,7 +39,7 @@ def pack_chunk(x: int, y: int, rgb: np.ndarray) -> bytes:
     return _HEADER.pack(MSG_RENDERED_PIXELS, n, x, y) + rgb.tobytes()
 
 
-def pack_row(y: int, rgb_row: np.ndarray, pixels_per_msg: int = PIXELS_PER_MSG) -> list[bytes]:
+def pack_row_plain(y: int, rgb_row: np.ndarray, pixels_per_msg: int = PIXELS_PER_MSG) -> list[bytes]:
     """Split one image row (label y) into 60-pixel messages, like the
     reference's windows() iterator (src/server.rs:169,:254-280)."""
     w = rgb_row.shape[0]
@@ -46,15 +49,31 @@ def pack_row(y: int, rgb_row: np.ndarray, pixels_per_msg: int = PIXELS_PER_MSG) 
     ]
 
 
-def pack_rows_batched(
+def pack_rows_batched_plain(
     y_top_label: int, rgb: np.ndarray, pixels_per_msg: int = PIXELS_PER_MSG
 ) -> bytes:
     """The standard chunks of several rows concatenated into one buffer (the
     opt-in batched transport). ``rgb`` is [rows, W, 3] in render-space row
     order; row i carries wire label ``y_top_label - i``."""
     return b"".join(
-        b"".join(pack_row(y_top_label - i, rgb[i], pixels_per_msg)) for i in range(rgb.shape[0])
+        b"".join(pack_row_plain(y_top_label - i, rgb[i], pixels_per_msg)) for i in range(rgb.shape[0])
     )
+
+
+def pack_row(y: int, rgb_row: np.ndarray, pixels_per_msg: int = PIXELS_PER_MSG) -> list[bytes]:
+    """``pack_row_plain`` by the native packer."""
+    from raytracer_tpu_torch.utils import native
+
+    return native.pack_row(y, rgb_row, pixels_per_msg)
+
+
+def pack_rows_batched(
+    y_top_label: int, rgb: np.ndarray, pixels_per_msg: int = PIXELS_PER_MSG
+) -> bytes:
+    """``pack_rows_batched_plain`` by the native packer, in one call."""
+    from raytracer_tpu_torch.utils import native
+
+    return native.pack_rows_blob(rgb, y_top_label - np.arange(rgb.shape[0]), pixels_per_msg)
 
 
 def parse_chunk(msg: bytes) -> tuple[int, int, int, np.ndarray]:

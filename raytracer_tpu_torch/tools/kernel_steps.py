@@ -149,8 +149,8 @@ _K3_OCTANT_SCAN = '''// The cut box each of a thread's rays enters first, into b
 // near one is known here; OCT < 0: any signs, the near and far plane by the
 // minimum and maximum of the two products (the same two products, so the
 // same bits either way: a box has lo <= hi and rounding is monotone).
-template <int NC, int OCT>
-__device__ __forceinline__ void nearest_cut(const KeyTable& tab, int n_cut,
+template <int NC, int OCT, class Table>
+__device__ __forceinline__ void nearest_cut(const Table& tab, int n_cut,
                                             const float (&ro)[KEY_RAYS][3],
                                             const float (&inv)[KEY_RAYS][3], float tri_tmin,
                                             float (&best_t)[KEY_RAYS], int (&best_i)[KEY_RAYS]) {

@@ -2,10 +2,13 @@
 
     python -m raytracer_tpu_torch.tools.render scenes/cornell_box.toml \\
         --spp 64 --out cornell.png [--mis] [--width 600 --height 450] \\
-        [--device cuda] [--no-shard] [--profile DIR]
+        [--engine mega|regen|fused|simple] [--device cuda] [--no-shard] \\
+        [--profile DIR]
 
 Port of ``raytracer_tpu/tools/render.py``. The PNG is written by the
 standard library's zlib (``utils/png.py``), so no imaging package is needed.
+``--engine`` sets ``RenderConfig.engine`` (default ``mega``: the megakernel
+where the scene allows it, else regen; ``fused`` for the fused-trace engine).
 ``RT_BVH_KERNEL=binary`` in the environment traces mesh scenes with the
 binary skip-link walk (K4) instead of the 8-wide traversal (K2). With
 several CUDA devices visible the row bands are spread over all of them
@@ -29,6 +32,7 @@ def main(argv=None) -> int:
     parser.add_argument("--mis", action="store_true", help="enable multiple importance sampling")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-depth", type=int, default=None)
+    parser.add_argument("--engine", default="mega", help="mega (default), regen, fused or simple")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
     parser.add_argument(
         "--no-shard", action="store_true",
@@ -47,7 +51,8 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.utils.png import write_png
     from raytracer_tpu_torch.utils.timing import RenderStats, device_trace
 
-    kwargs = dict(width=args.width, height=args.height, use_mis=args.mis, seed=args.seed)
+    kwargs = dict(width=args.width, height=args.height, use_mis=args.mis, seed=args.seed,
+                  engine=args.engine)
     if args.max_depth is not None:
         kwargs["max_depth"] = args.max_depth
     cfg = RenderConfig(**kwargs)

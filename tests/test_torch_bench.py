@@ -1,9 +1,10 @@
 """``bench_torch.py`` and ``__graft_entry_torch__.py`` at a small size on the
 CPU: the run functions return ``bench.py``'s keys, the JSON line has
 ``bench.py``'s key set (read from its source, not by running it) plus
-``card`` and ``transport``, every ratio against a CPU baseline is null,
-and without a card and without ``--device cpu`` the script exits 1 and
-prints nothing. Also the server's refusal of an engine the port lacks.
+``card``, ``transport``, ``cpu_host`` and ``cpu_native``, the native CPU
+baselines are measured in the run (the XLA CPU ones stay null), and without a card and without ``--device cpu`` the script exits 1 and
+prints nothing. Also the server's refusal of an engine name that neither
+package defines, and its start with ``engine = "fused"``.
 """
 
 import ast
@@ -103,15 +104,23 @@ def test_json_line_has_bench_py_keys(capsys):
     doc = json.loads(lines[0])
     printed = next(n for n in ast.walk(_function(_bench_py(), "main")) if isinstance(n, ast.Dict)
                    and "metric" in _dict_keys(n))
-    assert set(doc) == set(_dict_keys(printed)) | {"card", "transport"}
+    assert set(doc) == set(_dict_keys(printed)) | {"card", "transport", "cpu_host", "cpu_native"}
     assert doc["transport"] == "in_process" and doc["card"] == "cpu" and doc["unit"] == "Mrays/s"
     assert doc["metric"] == f"Mrays/s/chip, cornell_box {W}x{H}@8spp (NEE path)"
-    ratios = [k for k in doc if k.startswith("vs_") or (k.startswith("cpu_") and k.endswith("_mrays_per_s"))]
-    assert len(ratios) == 5 and all(doc[k] is None for k in ratios)
+    # The native baselines are measured in the run, on this host; the XLA
+    # CPU ones have no counterpart in the port.
+    assert doc["vs_xla_cpu_same_software"] is None and doc["cpu_xla_mrays_per_s"] is None
+    assert doc["baseline_impl"] == "native-cpp reference-style tracer"
+    assert str(os.cpu_count()) in doc["cpu_host"]
+    cpu = doc["cpu_native"]
+    assert cpu["cornell_box"]["rows"] == [0, 450] and cpu["flying_unicorn"]["rows"] == [200, 230]
+    assert doc["cpu_native_mrays_per_s"] == round(cpu["cornell_box"]["mrays_per_s"], 3) > 0
+    assert doc["cpu_native_mesh_mrays_per_s"] == round(cpu["flying_unicorn"]["mrays_per_s"], 4) > 0
     configs = doc["configs"]
+    assert doc["vs_baseline"] == round(configs["cornell_256_nee"]["mrays_per_s"] / cpu["cornell_box"]["mrays_per_s"], 1)
     assert list(configs) == [c[0] for c in bench_torch.CONFIGS] + ["progressive_1080p", "unicorn_16_serving"]
-    for key in ("flying_unicorn_16", "crewmate_phong_16"):
-        assert configs[key]["vs_native_cpu"] is None
+    for key, scene in (("flying_unicorn_16", "flying_unicorn"), ("crewmate_phong_16", "crewmate_phong")):
+        assert configs[key]["vs_native_cpu"] == round(configs[key]["mrays_per_s"] / cpu[scene]["mrays_per_s"], 1)
     head = configs["cornell_256_nee"]
     assert (doc["value"], doc["wall_clock_to_256spp_s"], doc["rays_traced"]) == (
         head["mrays_per_s"], head["wall_s"], head["rays"])
@@ -156,16 +165,31 @@ def test_entry_runs_on_the_cpu():
     assert torch.equal(sums, again)
 
 
-# --- the engine the port lacks ---------------------------------------------------
+# --- engine names -------------------------------------------------------------------
 
 
-def test_server_main_refuses_an_engine_the_port_lacks(tmp_path, capsys):
-    from raytracer_tpu_torch.server.main import main
+def test_server_main_refuses_an_engine_the_port_lacks(tmp_path, capsys, monkeypatch):
+    """A config engine that neither package defines is refused at start-up;
+    ``engine = "fused"`` gets as far as serving."""
+    from raytracer_tpu_torch.server import main as server_main
 
-    (tmp_path / "fused.toml").write_text('engine = "fused"\n')
-    assert main([SCENES, "--config", str(tmp_path / "fused.toml"), "--device", "cpu", "--no-warmup"]) == 1
+    (tmp_path / "warp.toml").write_text('engine = "warp"\n')
+    args = [SCENES, "--config", str(tmp_path / "warp.toml"), "--device", "cpu", "--no-warmup"]
+    assert server_main.main(args) == 1
     err = capsys.readouterr().err
-    assert "'fused'" in err and all(e in err for e in ("mega", "regen", "simple"))
+    assert "'warp'" in err and all(e in err for e in ("mega", "regen", "fused", "simple"))
+
+    served = []
+
+    async def serve_forever(self, port):
+        served.append((self.base_cfg.engine, sorted(self.scenes)))
+
+    monkeypatch.setattr(server_main.Server, "serve_forever", serve_forever)
+    (tmp_path / "fused.toml").write_text('engine = "fused"\n')
+    args = [SCENES, "--config", str(tmp_path / "fused.toml"), "--device", "cpu", "--no-warmup",
+            "--scenes", "cornell_box"]
+    assert server_main.main(args) == 0
+    assert served == [("fused", ["cornell_box"])]
 
 
 def test_server_renders_the_simple_engine():
@@ -195,7 +219,7 @@ def test_a_renderer_that_cannot_be_built_closes_the_connection(caplog):
     from raytracer_tpu_torch.server.app import Server
 
     scene = load_scene(os.path.join(SCENES, "cornell_box.toml"), device="cpu")
-    srv = Server({"cornell_box": scene}, cfg=RenderConfig(engine="fused"), device="cpu")
+    srv = Server({"cornell_box": scene}, cfg=RenderConfig(engine="warp"), device="cpu")
 
     class Socket:
         sent: list = []
@@ -215,4 +239,4 @@ def test_a_renderer_that_cannot_be_built_closes_the_connection(caplog):
         asyncio.run(srv.handle_connection(sock))  # returns; does not raise
     assert not sock.sent and not srv.connections
     errors = [r.getMessage() for r in caplog.records if "no renderer" in r.getMessage()]
-    assert len(errors) == 1 and "not ported" in errors[0]  # the loop ended at the first request
+    assert len(errors) == 1 and "not one of" in errors[0]  # the loop ended at the first request

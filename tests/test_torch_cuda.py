@@ -90,6 +90,37 @@ def test_key_kernel_is_bit_equal_to_twin_on_gpu(cuda, n_cut):
 
 
 @pytest.mark.cuda
+def test_key_kernel_reads_a_device_table_past_64_cut_boxes(cuda, monkeypatch):
+    """RT_MAX_CUT=256: the kernel's third instance, over a device copy of
+    the table."""
+    from raytracer_tpu_torch.ops import keys
+
+    monkeypatch.setenv("RT_MAX_CUT", "256")
+    scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    assert scene.bvh_cut_lo.shape[0] == 256
+    ro, rd = _unicorn_rays(scene, 1 << 16, 6, cuda)
+    k = keys.coherence_key_cuda(scene, ro, rd, RenderConfig().eps)
+    assert torch.equal(k, keys.coherence_key_twin(scene, ro, rd, RenderConfig().eps))
+    assert ((k >> 17) & 0x1FFF).max().item() >= keys.KEY_MAX_CUT
+
+
+@pytest.mark.cuda
+def test_fused_engine_equals_regen_on_gpu(cuda):
+    """The fused engine through K3 and K2, one launch of each a trace: the
+    regen frame's pixels and rays."""
+    from raytracer_tpu_torch.ops import bvh_traverse, keys
+
+    scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    regen = Renderer(scene, RenderConfig(width=64, height=48))
+    fused = Renderer(scene, RenderConfig(width=64, height=48, engine="fused"))
+    want = regen.render_image(8)
+    k0, b0 = keys.LAUNCHES, bvh_traverse.LAUNCHES
+    got = fused.render_image(8)
+    assert fused.engine == "fused" and keys.LAUNCHES - k0 == bvh_traverse.LAUNCHES - b0 > 0
+    assert (got == want).all() and fused.rays_traced() == regen.rays_traced()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_traversal_kernel_matches_twin_on_gpu(cuda, any_hit):
     from raytracer_tpu_torch.ops import bvh_traverse as bt

@@ -44,7 +44,8 @@ def _forbidden(name: str) -> bool:
 
 def test_the_new_copies_are_port_modules():
     for mod in ("config", "models.obj", "server.wire", "utils.timing", "render.checkpoint",
-                "parallel.mesh", "tools.top_ops", "tools.parity", "tools.kbench"):
+                "parallel.mesh", "tools.top_ops", "tools.parity", "tools.kbench",
+                "render.wavefront_fused", "utils.native"):
         assert f"{PKG}.{mod}" in MODULES
 
 

@@ -1,10 +1,11 @@
 """The coherence key's plain PyTorch twin (K3) against the JAX package's
 ``_coherence_key`` (its XLA form on the CPU), bit for bit, on ~50k
 flying_unicorn rays: camera rays, random rays (some axis-aligned, to hit
-the 1e-12 guard) and parked rays, with the loader's 32 cut boxes and with
-cuts of 1 and 64 boxes (the CUDA kernel takes 32 with its cut count at
-compile time and any other count at run time; the twin is one loop). Plus
-the permutation built on it."""
+the 1e-12 guard) and parked rays, with the loader's 32 cut boxes, with
+cuts of 1 and 64 boxes and with ``RT_MAX_CUT=256`` (the CUDA kernel takes
+32 with its cut count at compile time, any other count up to 64 at run time
+from its by-value table, and up to 8191 from a device table; the twin is
+one loop). Plus the permutation built on it."""
 
 import dataclasses
 import os
@@ -131,3 +132,49 @@ def test_key_table_is_built_once_per_scene(scenes):
     assert table.device.type == "cpu" and table.shape == (port.bvh_cut_lo.shape[0] + 1, 6)
     np.testing.assert_array_equal(table[:-1, :3].numpy(), port.bvh_cut_lo.numpy())
     np.testing.assert_array_equal(table[-1].numpy(), torch.cat([port.bvh_lo[0], port.bvh_hi[0]]).numpy())
+
+
+def test_key_twin_with_256_cut_boxes_is_bit_equal_to_jax(monkeypatch):
+    """``RT_MAX_CUT=256`` on the unicorn, read by both loaders: the cuts
+    agree, and the keys of the twin equal JAX's (the kernel's device table
+    takes 65..8191 boxes)."""
+    monkeypatch.setenv("RT_MAX_CUT", "256")
+    path = os.path.join(SCENES, "flying_unicorn.toml")
+    ref, port = jax_load_scene(path), load_scene(path, device="cpu")
+    assert port.bvh_cut_lo.shape[0] == 256 > keys.KEY_MAX_CUT
+    np.testing.assert_array_equal(np.asarray(ref.bvh_cut_lo), port.bvh_cut_lo.numpy())
+    ro, rd = _rays(port, np.random.default_rng(256))
+    ro, rd = ro[::4], rd[::4]
+    want = np.asarray(_coherence_key(ref, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS)))
+    got = keys.coherence_key(port, torch.from_numpy(ro), torch.from_numpy(rd), EPS).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique((got >> 17) & 0x1FFF)) > 64
+
+
+def test_the_key_takes_1_to_8191_cut_boxes(scenes):
+    """The wrapper accepts every count the 13-bit entry field can name and
+    refuses 8192; past KEY_MAX_CUT the kernel reads a device table."""
+    _, port = scenes
+    for n_cut in (1, 65, 256, 8191):
+        keys.check_cut_count(n_cut)
+    for n_cut in (0, 8192):
+        with pytest.raises(ValueError, match="1..8191"):
+            keys.check_cut_count(n_cut)
+    rng = np.random.default_rng(8191)
+    root_lo, root_hi = port.bvh_lo[0].numpy(), port.bvh_hi[0].numpy()
+    lo = rng.uniform(root_lo, root_hi, (8192, 3)).astype(np.float32)
+    hi = lo + (rng.uniform(0.05, 0.3, (8192, 3)) * (root_hi - root_lo)).astype(np.float32)
+    ro, rd = _rays(port, rng)
+    ro_t, rd_t = torch.from_numpy(ro[::500]), torch.from_numpy(rd[::500])
+    for n_cut in (8191, 8192):
+        many = dataclasses.replace(port, bvh_cut_lo=torch.from_numpy(lo[:n_cut]),
+                                   bvh_cut_hi=torch.from_numpy(hi[:n_cut]))
+        if n_cut == 8192:
+            with pytest.raises(ValueError, match="1..8191"):
+                keys.coherence_key(many, ro_t, rd_t, EPS)
+            with pytest.raises(ValueError, match="1..8191"):
+                keys.coherence_key_cuda(many, ro_t, rd_t, EPS)
+        else:
+            got = keys.coherence_key(many, ro_t, rd_t, EPS)
+            assert ((got >> 17) & 0x1FFF).max() > keys.KEY_MAX_CUT
+            assert keys._key_table(many).shape == (8192, 6)

@@ -74,12 +74,20 @@ def test_engine_gate_raises_outside_the_slice():
     assert select_band_engine(scene, RenderConfig(engine="regen")) == "regen"
     # MIS is the regen engine's, as in raytracer_tpu/render/renderer.py:134.
     assert select_band_engine(scene, RenderConfig(use_mis=True)) == "regen"
-    # The lockstep engine renders when asked for; "fused" is not ported.
+    # The lockstep and fused engines render when asked for; fused with MIS
+    # resolves to regen (raytracer_tpu/render/renderer.py:143-144).
     assert select_band_engine(scene, RenderConfig(engine="simple")) == "simple"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        select_band_engine(scene, RenderConfig(engine="fused"))
-    with pytest.raises(NotImplementedError, match="'mega', 'regen', 'simple'"):
-        Renderer(scene, RenderConfig(engine="fused"), device="cpu")
+    assert select_band_engine(scene, RenderConfig(engine="fused")) == "fused"
+    assert select_band_engine(scene, RenderConfig(engine="fused", use_mis=True)) == "regen"
+    r = Renderer(scene, RenderConfig(engine="fused", width=W, height=H), device="cpu")
+    assert r.engine == "fused" and r.pre is not None
+    img = r.render_image(4)
+    assert img.shape == (H, W, 3) and img.mean() > 5 and r.rays_traced() > W * H * 4
+    # A name that neither package defines is refused (JAX renders it as regen).
+    with pytest.raises(NotImplementedError, match="not one of"):
+        select_band_engine(scene, RenderConfig(engine="warp"))
+    with pytest.raises(NotImplementedError, match="'mega', 'regen', 'fused', 'simple'"):
+        Renderer(scene, RenderConfig(engine="warp"), device="cpu")
 
 
 @pytest.fixture(scope="module")
