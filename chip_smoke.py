@@ -53,10 +53,29 @@ Then the rest of what the port does, each at the reference's 600x450:
   the top host ops and the device's busy share;
 - ``[parity]`` ``tools.parity`` on flying_unicorn and crewmate_phong;
 - ``[bench]`` ``bench_torch.py``'s run functions (three timed renders a
-  config; the cornell MIS reading stays the ``[time]`` line's), each with
+  config; cornell MIS is read once, at 64 spp, by the ``[time]`` lines), each with
   its own launch counts: a megakernel config and the progressive run must
   launch K1, a mesh config and the served run K2 and K3;
-- ``[entry]`` the band step of ``__graft_entry_torch__.entry()``.
+- ``[entry]`` the band step of ``__graft_entry_torch__.entry()``;
+- ``[mesh-light]`` the chair room of ``tests/test_server_mesh.py:28`` lit
+  by an octahedron mesh light (written to a temporary directory) instead
+  of its sphere: a mesh light behind the BVH, 16 spp, seeds 0 and 1, on the
+  regen and fused engines: K2 and K3 launch on both, the fused frame equals
+  the regen frame on every pixel, the NEE and MIS means agree within
+  ``MESH_LIGHT_MIS_BOUND``, and ``tools.parity`` holds every kernel against
+  its twin on the scene's rays;
+- ``[variants]`` the measurement hooks of the regen engine and of the
+  traversal wrapper on flying_unicorn 16 spp, each frame's wall beside the
+  default's (medians of 3 runs, every variant and the default in turn),
+  its K2/K3/K4 launches and its traversal and K3 kernel time: the frames of
+  ``RT_PERMUTE_STATE=0``, ``RT_SORT_GROUP=8`` and ``RT_SHADOW_COMPACT=1``
+  equal to the default on every pixel (and on crewmate_phong under K4),
+  ``RT_STATE_BF16=1`` and ``RT_SHADOW_REVERSE=1`` statistically equal,
+  ``RT_DEFER_SHADOW=1`` equal on >= 99% of pixels; the glue's split by the
+  probes ``RT_ABLATE=shadow`` and ``RT_ABLATE=rng``; ``RT_SHADOW_COMPACT``
+  on the frame's any-hit shadow class; and K2 against its twin at
+  ``RT_LEAF_TRIS`` 0 and 8, its time at 0, 8 and 64 beside the bound of
+  the rows each tests.
 
 Each path runs with every launch count set to 0 just before it and read
 just after, and fails if one of its kernels was not launched. Every phase
@@ -119,6 +138,19 @@ FUSED_PARKED_EVERY = 3
 # (a 64 spp render, mean 112.50): the mean within these bounds and the MAD
 # below IMAGE_MAD_MAX.
 MIS_MEAN = (111.0, 114.0)
+# The mesh-light scene, 600x450 16 spp: the NEE and MIS image means within
+# this many u8: the 3.5 of tests/test_torch_phong_mis.py::
+# test_mis_agrees_with_nee at 48x36 64 spp, scaled by the square root of
+# the samples' ratio, as the mean's noise falls (3.5 / sqrt(39.06) = 0.56).
+# (On the CPU at 200x150 16 spp, same seed, the two means differ by 0.03.)
+MESH_LIGHT_MIS_BOUND = 3.5 * (48 * 36 * 64 / (600 * 450 * 16)) ** 0.5
+# [variants] on flying_unicorn 16 spp against the default frame: a frame of
+# other roundings (RT_STATE_BF16, RT_SHADOW_REVERSE) within this mean and
+# at most MAD(seed 0, seed 1) + UNICORN_MAD_MARGIN from it; the deferred
+# shadow frame (the same terms, resolved an iteration later) equal on this
+# share of pixels and within this mean.
+VARIANT_MEAN = 0.5
+DEFER_PIXEL_SHARE, DEFER_MEAN = 0.99, 0.05
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): f32 outside the tensor
 # cores, counting a fused multiply-add as two operations, and HBM3. The
@@ -279,17 +311,76 @@ REDESIGNED = {
 }
 
 
-def with_variant(variant: str, fn):
-    """``fn()`` with ``RT_BVH_KERNEL`` set to ``variant``, restored after."""
-    saved = os.environ.get("RT_BVH_KERNEL")
-    os.environ["RT_BVH_KERNEL"] = variant
+def with_env(env: dict, fn):
+    """``fn()`` with the variables ``env`` set, restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         return fn()
     finally:
-        if saved is None:
-            os.environ.pop("RT_BVH_KERNEL", None)
-        else:
-            os.environ["RT_BVH_KERNEL"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def with_variant(variant: str, fn):
+    """``fn()`` with ``RT_BVH_KERNEL`` set to ``variant``, restored after."""
+    return with_env({"RT_BVH_KERNEL": variant}, fn)
+
+
+def octahedron_obj(center, radius) -> str:
+    """OBJ text of a closed octahedron wound so that the reference's normal
+    normalize((c-a) x (b-a)) points outward on every face: a mesh light
+    without a back face (as tests/test_torch_phong_mis.py builds it)."""
+    c = np.asarray(center, np.float64)
+    verts = [c + s * np.eye(3)[k] * radius for k in range(3) for s in (1, -1)]  # +x -x +y -y +z -z
+    faces = []
+    for sx in (0, 1):
+        for sy in (2, 3):
+            for sz in (4, 5):
+                a, b, cc = verts[sx], verts[sy], verts[sz]
+                outward = np.dot(np.cross(cc - a, b - a), (a + b + cc) / 3 - c) > 0
+                faces.append((sx, sy, sz) if outward else (sx, sz, sy))
+    return "".join(f"v {x} {y} {z}\n" for x, y, z in verts) + "".join(
+        f"f {i + 1} {j + 1} {k + 1}\n" for i, j, k in faces)
+
+
+def mesh_light_toml(tmp: str) -> str:
+    """The chair room of tests/test_server_mesh.py:28 (floor, back wall, the
+    chair of scenes/assets/chair.obj) with its sphere light replaced by an
+    octahedron mesh light of radius 5 at the sphere's centre, written to
+    ``tmp``; returns the TOML's path."""
+    octa = os.path.join(tmp, "octa.obj")
+    with open(octa, "w") as fh:
+        fh.write(octahedron_obj([50.0, 70.0, 100.0], 5.0))
+    chair = os.path.join(ROOT, "scenes", "assets", "chair.obj")
+    path = os.path.join(tmp, "chair_mesh_light.toml")
+    with open(path, "w") as fh:
+        fh.write(f"""[camera]
+pos = [50.0, 52.0, 295.6]
+dir = [0.0, -0.042612, -1.0]
+
+[[objects]]
+brdf = {{ type = "diffuse", kd = [0.75, 0.75, 0.75] }}
+geometry = {{ type = "plane", pos = [0.0, 0.0, 0.0], n = [0.0, 1.0, 0.0] }}
+
+[[objects]]
+brdf = {{ type = "diffuse", kd = [0.75, 0.75, 0.75] }}
+geometry = {{ type = "plane", pos = [0.0, 0.0, 0.0], n = [0.0, 0.0, -1.0] }}
+
+[[objects]]
+brdf = {{ type = "diffuse", kd = [0.8, 0.6, 0.4] }}
+geometry = {{ type = "mesh", path = {json.dumps(chair)} }}
+transforms = [{{ scale = 12.0 }}, {{ translate = [50.0, 15.0, 70.0] }}]
+
+[[objects]]
+emitted = [50.0, 50.0, 50.0]
+brdf = {{ type = "diffuse", kd = [0.0, 0.0, 0.0] }}
+geometry = {{ type = "mesh", path = {json.dumps(octa)} }}
+""")
+    return path
 
 
 def main() -> int:
@@ -338,6 +429,52 @@ def main() -> int:
     smi = card()
     name = torch.cuda.get_device_name(0)
     print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}", flush=True)
+
+    # Where the time goes: one plain render for the wall (or the wall given),
+    # then one with every traversal (K2 or K4) and K3 launch timed by CUDA
+    # events recorded directly before and after it, behind a spacer
+    # (SPACER_CYCLES): the kernels' own durations. The rest of the wall is
+    # glue.
+    def breakdown(scene, spp, label, engine="mega", wall=None):
+        spent = {"trav": [], "K3": []}
+
+        def timed(launch, bucket):
+            def run(*a):
+                torch.cuda._sleep(SPACER_CYCLES)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                rc = launch(*a)
+                e1.record()
+                spent[bucket].append((e0, e1))
+                return rc
+            return run
+
+        def render():
+            r = Renderer(scene, RenderConfig(engine=engine), device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render_image(spp)
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) * 1e3
+
+        if wall is None:
+            r, wall = render()
+        real = (bt._lib, bb._launch_fn, keys._launch_fn)
+        k2_lib = types.SimpleNamespace(rt_bvh8_launch=timed(real[0]().rt_bvh8_launch, "trav"))
+        k4_fn, k3_fn = timed(real[1](), "trav"), timed(real[2](), "K3")
+        bt._lib, bb._launch_fn, keys._launch_fn = (lambda: k2_lib), (lambda: k4_fn), (lambda: k3_fn)
+        try:
+            r, _ = render()
+        finally:
+            bt._lib, bb._launch_fn, keys._launch_fn = real
+        trav = sum(a.elapsed_time(b) for a, b in spent["trav"])
+        k3 = sum(a.elapsed_time(b) for a, b in spent["K3"])
+        rays = r.rays_traced()
+        print(f"[time] {label} 600x450 {spp}spp: {wall / 1e3:.4f} s, {rays / wall / 1e3:.2f} Mrays/s; breakdown "
+              f"wall {wall:.1f} ms = traversal kernels {trav:.1f} ms ({len(spent['trav'])} launches) + K3 kernels "
+              f"{k3:.1f} ms ({len(spent['K3'])} launches) + glue {wall - trav - k3:.1f} ms (kernel times: events "
+              f"directly around each launch of a second render) | {smi}", flush=True)
+        return dict(n_trav=len(spent["trav"]), n_k3=len(spent["K3"]), trav_ms=trav, k3_ms=k3, wall_ms=wall)
 
     # 2) build all four sources and the native host library at once
     t0 = time.perf_counter()
@@ -635,7 +772,7 @@ def main() -> int:
     unicorn_frame, unicorn_rays0 = imgs[0], rays_by_seed[0]
     mean0 = float(imgs[0].mean())
     mad0 = float(np.abs(imgs[0].astype(np.float64) - ref).mean())
-    mad01 = float(np.abs(imgs[0].astype(np.float64) - imgs[1].astype(np.float64)).mean())
+    mad01 = uni_mad01 = float(np.abs(imgs[0].astype(np.float64) - imgs[1].astype(np.float64)).mean())
     print(f"[render] flying_unicorn MAD(seed 0, seed 1) = {mad01:.3f}; MAD(seed 0, ref) = {mad0:.3f}", flush=True)
     check(UNICORN_MEAN[0] <= mean0 <= UNICORN_MEAN[1], f"flying_unicorn mean {mean0:.3f} outside {UNICORN_MEAN}")
     check(mad0 <= mad01 + UNICORN_MAD_MARGIN, f"flying_unicorn MAD {mad0:.3f} > {mad01:.3f} + {UNICORN_MAD_MARGIN}")
@@ -756,7 +893,8 @@ def main() -> int:
     check(r.engine == "regen", f"cornell_box MIS: select_band_engine gave {r.engine!r}")
     t0 = time.perf_counter()
     img = r.render_image(64)
-    wall = time.perf_counter() - t0
+    wall = mis_wall = time.perf_counter() - t0
+    mis_rays = r.rays_traced()
     mean, mad = float(img.mean()), float(np.abs(img - ref).mean())
     print(f"[render] cornell_box MIS 600x450 64spp engine={r.engine} mean={mean:.3f} (ref {ref.mean():.3f}) "
           f"MAD={mad:.3f} wall={wall:.4f} s | {smi}", flush=True)
@@ -768,6 +906,50 @@ def main() -> int:
     check(min(path3.values()) > 0, "the Phong/MIS path did not launch K2, K3 and K4")
     launches["K4"] = path3["K4"]
     lap("Phong/MIS path")
+
+    # 9-) the mesh-light path: a mesh light behind the BVH (draw 8 and the
+    # mesh-light sample), on the regen and the fused engine, 16 spp, seeds 0
+    # and 1; NEE against MIS; every kernel against its twin on its rays
+    from raytracer_tpu_torch.models.scene import LIGHT_MESH
+
+    path_launches_ml = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ml_path = mesh_light_toml(tmp)
+        ml = load_scene(ml_path, device="cuda")
+        check(ml.light_type == LIGHT_MESH and ml.use_bvh,
+              f"mesh light: light type {ml.light_type}, BVH {ml.use_bvh}: not a mesh light behind a BVH")
+        ml_imgs = {}
+        for eng in ("regen", "fused"):
+            zero_counts()
+            for sd in (0, 1):
+                r = Renderer(ml, RenderConfig(seed=sd, engine=eng), device="cuda")
+                check(r.engine == eng, f"mesh light: engine {r.engine!r}, asked for {eng!r}")
+                t0 = time.perf_counter()
+                ml_imgs[eng, sd] = img = r.render_image(16)
+                wall = time.perf_counter() - t0
+                check(img.shape == (450, 600, 3) and img.mean() > 5.0, f"mesh light {eng}: bad image")
+                print(f"[mesh-light] chair room, octahedron mesh light, 600x450 16spp engine={eng} seed={sd}: mean "
+                      f"{img.mean():.3f}, wall {wall:.4f} s, rays {r.rays_traced()} | {smi}", flush=True)
+            counts = path_launches_ml[f"mesh light {eng}"] = launch_counts()
+            print(f"[launches] mesh light {eng}: {counts}", flush=True)
+            check(counts["K2"] > 0 and counts["K3"] > 0, f"mesh light {eng}: launches {counts}")
+        for sd in (0, 1):
+            check(np.array_equal(ml_imgs["fused", sd], ml_imgs["regen", sd]),
+                  f"mesh light seed {sd}: the fused frame differs from the regen frame")
+        r = Renderer(ml, RenderConfig(use_mis=True), device="cuda")
+        mis_img = r.render_image(16)
+        nee_mean, mis_mean = float(ml_imgs["regen", 0].mean()), float(mis_img.mean())
+        ml_mad01 = float(np.abs(ml_imgs["regen", 0].astype(np.float64) - ml_imgs["regen", 1]).mean())
+        print(f"[mesh-light] fused = regen on every pixel (seeds 0 and 1); NEE mean {nee_mean:.3f}, MIS mean "
+              f"{mis_mean:.3f} (|d| {abs(nee_mean - mis_mean):.3f}, bound {MESH_LIGHT_MIS_BOUND:.3f}); MAD(seed 0, "
+              f"seed 1) = {ml_mad01:.3f} | {smi}", flush=True)
+        check(abs(nee_mean - mis_mean) <= MESH_LIGHT_MIS_BOUND,
+              f"mesh light: NEE mean {nee_mean:.3f} and MIS mean {mis_mean:.3f} differ by more than "
+              f"{MESH_LIGHT_MIS_BOUND:.3f}")
+        zero_counts()
+        check(parity.run(ml_path, device="cuda"), "parity: the mesh-light scene's kernels disagree with their twins")
+        path_launches_ml["parity mesh light"] = launch_counts()
+    lap("mesh light")
 
     # 9a) the fused engine. First K3, K2 and K4 against their twins on its
     # double-width batch: the frame's unicorn bounce rays, then its bounded
@@ -966,7 +1148,7 @@ def main() -> int:
     resume_s = time.perf_counter() - t0
     same = bool(np.array_equal(done.sums, whole.sums))
     mean = float(done.image().mean())
-    path_launches = dict(path_launches_fused, checkpoint=launch_counts())
+    path_launches = dict(path_launches_fused, **path_launches_ml, checkpoint=launch_counts())
     plain_mean = float(r.render_image(256).mean())
     print(f"[checkpoint] cornell_box 600x450 256spp: uninterrupted {whole_s:.4f} s; cancelled after 2 of 4 chunks "
           f"({part.num_samples} samples), saved ({size} bytes), loaded, resumed in {resume_s:.4f} s to "
@@ -1080,7 +1262,7 @@ def main() -> int:
     lap("parity")
 
     # 9g) bench_torch's run functions in this process, three timed renders a
-    # config (cornell MIS: the single 256 spp render of the [time] lines)
+    # config (cornell MIS: the single 64 spp render of the [time] lines)
     bench = {}
 
     def bench_run(key, kernels, run):
@@ -1117,6 +1299,143 @@ def main() -> int:
     for path, counts in path_launches.items():
         print(f"[launches] {path}: {counts}", flush=True)
     lap("entry")
+
+    # 9i) [variants]: the measurement hooks on flying_unicorn 600x450 16 spp.
+    # The default and every variant render in turn, three rounds: walls are
+    # medians of 3, launches and images the last round's (each render is
+    # deterministic). Then each variant's traversal and K3 kernel time.
+    variants = (
+        ("RT_PERMUTE_STATE=0", "equal"), ("RT_SORT_GROUP=8", "equal"), ("RT_SHADOW_COMPACT=1", "equal"),
+        ("RT_STATE_BF16=1", "rounded"), ("RT_SHADOW_REVERSE=1", "rounded"), ("RT_DEFER_SHADOW=1", "regrouped"),
+        ("RT_ABLATE=shadow", "probe"), ("RT_ABLATE=rng", "probe"),
+    )
+
+    def env_of(label: str) -> dict:
+        return dict([label.split("=")]) if label != "default" else {}
+
+    def variant_frame(scene):
+        zero_counts()
+        r = Renderer(scene, RenderConfig(), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.render_image(16)
+        return img, time.perf_counter() - t0, launch_counts(), r.rays_traced()
+
+    v_walls = {label: [] for label in ["default"] + [v for v, _ in variants]}
+    v_out = {}
+    for _ in range(3):
+        for label in v_walls:
+            v_out[label] = with_env(env_of(label), lambda: variant_frame(uni))
+            v_walls[label].append(v_out[label][1])
+    med = {label: sorted(w)[1] for label, w in v_walls.items()}
+    base, _, base_counts, base_rays = v_out["default"]
+    check(np.array_equal(base, unicorn_frame), "variants: the default frame differs from the BVH path's")
+    path_launches["variants default"] = base_counts
+    print(f"[variants] flying_unicorn 600x450 16spp default: wall {med['default']:.4f} s "
+          f"{[round(x, 4) for x in v_walls['default']]}, launches a frame {base_counts}, rays {base_rays} | {smi}",
+          flush=True)
+    for label, kind in variants:
+        img8, _, counts, rays = v_out[label]
+        img = img8.astype(np.float64)
+        same = float((img8 == base).all(axis=2).mean())
+        d_mean, mad = img.mean() - base.mean(), float(np.abs(img - base).mean())
+        path_launches[f"variant {label}"] = counts
+        bd = with_env(env_of(label), lambda: breakdown(uni, 16, f"flying_unicorn {label} (K2)", "regen",
+                                                       wall=med[label] * 1e3))
+        print(f"[variants] flying_unicorn 600x450 16spp {label}: wall {med[label]:.4f} s "
+              f"{[round(x, 4) for x in v_walls[label]]} against the default's {med['default']:.4f} s "
+              f"(x{med[label] / med['default']:.3f}); launches a frame K2 {counts['K2']} K3 {counts['K3']} K4 "
+              f"{counts['K4']}; traversal {bd['trav_ms']:.1f} ms, K3 {bd['k3_ms']:.1f} ms; rays {rays} "
+              f"({rays / base_rays:.4f} of the default's); equal to the default on {same:.6%} of pixels, mean "
+              f"{img.mean():.3f} ({d_mean:+.4f}), MAD {mad:.4f} | {smi}", flush=True)
+        check(np.isfinite(img).all() and counts["K2"] > 0 and counts["K3"] > 0 and counts["K4"] == 0,
+              f"variants {label}: launches {counts}")
+        if kind == "equal":
+            check(same == 1.0 and rays == base_rays, f"variants {label}: equal on {same:.4%} of pixels, rays {rays}")
+        elif kind == "rounded":
+            check(abs(d_mean) <= VARIANT_MEAN and mad <= uni_mad01 + UNICORN_MAD_MARGIN,
+                  f"variants {label}: mean {d_mean:+.4f}, MAD {mad:.4f} (seeds {uni_mad01:.4f})")
+        elif kind == "regrouped":
+            check(same >= DEFER_PIXEL_SHARE and abs(d_mean) <= DEFER_MEAN,
+                  f"variants {label}: equal on {same:.4%} of pixels, mean {d_mean:+.4f}")
+    # The shadow chain leaves with RT_ABLATE=shadow (one K2 and one K3 a
+    # main trace), and with RT_SHADOW_REVERSE / RT_DEFER_SHADOW its K3.
+    sh = v_out["RT_ABLATE=shadow"][2]
+    check(sh["K2"] == sh["K3"] == base_counts["K3"] // 2, f"RT_ABLATE=shadow: launches {sh}")
+    for label in ("RT_SHADOW_REVERSE=1", "RT_DEFER_SHADOW=1"):
+        c = v_out[label][2]
+        check(c["K2"] == 2 * c["K3"] and c["K3"] < base_counts["K3"], f"{label}: launches {c}")
+    d_sh, d_rng = med["default"] - med["RT_ABLATE=shadow"], med["default"] - med["RT_ABLATE=rng"]
+    rays_rng = v_out["RT_ABLATE=rng"][3]
+    print(f"[variants] the glue's split, flying_unicorn 600x450 16spp: default {med['default']:.4f} s; "
+          f"RT_ABLATE=shadow {med['RT_ABLATE=shadow']:.4f} s, so the shadow chain (its K3, sort, gathers, K2, "
+          f"unsort, visibility) costs {d_sh:.4f} s ({d_sh / med['default']:.2%}); RT_ABLATE=rng "
+          f"{med['RT_ABLATE=rng']:.4f} s, so the counter hash of the shading draws costs {d_rng:.4f} s "
+          f"({d_rng / med['default']:.2%}), with {rays_rng} rays against {base_rays} (constant draws change "
+          f"the paths: per ray {med['RT_ABLATE=rng'] / rays_rng * 1e9:.2f} ns against "
+          f"{med['default'] / base_rays * 1e9:.2f} ns) | {smi}", flush=True)
+
+    # Rows 1-3 on crewmate_phong under K4: frames equal to its K4 frame.
+    for label, _ in variants[:3]:
+        img, _, counts, _ = with_env({"RT_BVH_KERNEL": "binary", **env_of(label)}, lambda: variant_frame(crew))
+        path_launches[f"variant {label} crewmate K4"] = counts
+        same = bool(np.array_equal(img, variant_imgs["binary"]))
+        print(f"[variants] crewmate_phong 600x450 16spp RT_BVH_KERNEL=binary {label}: launches {counts}, equal to "
+              f"the K4 frame on every pixel: {same}", flush=True)
+        check(same and counts["K4"] > 0 and counts["K2"] == 0, f"variants crewmate K4 {label}: {same}, {counts}")
+
+    # RT_SHADOW_COMPACT on the frame's any-hit shadow class (the regen
+    # engine issues no any-hit query), as drawn and with every second ray
+    # resolved (as culled and parked lanes are): "1" equal to the plain
+    # wrapper, "force" at half width; wrapper walls, medians of 3.
+    s_ro, s_rd, s_bound, s_res0, _ = classes["shadow-any-hit"]
+    n_half = (-(-n_frame // bt.PACKET) + 1) // 2 * bt.PACKET
+    for cname, res0 in (("as drawn", s_res0), ("half resolved", s_res0 | (torch.arange(n_frame, device="cuda") % 2 == 0))):
+        key = keys.coherence_key_cuda(uni, s_ro, s_rd, cfg.eps) | (res0.to(torch.int32) << 30)
+        n_live = int(((key >> 30) == 0).sum())
+        outs, ms_c = {}, {}
+        for mode in ("0", "1", "force"):
+            def any_hit_trace():
+                return bt.bvh_intersect(uni, s_ro, s_rd, cfg.eps, t_init=s_bound, any_hit=True, resolved0=res0)
+
+            outs[mode] = with_env({"RT_SHADOW_COMPACT": mode}, any_hit_trace)
+            ms_c[mode] = sorted(with_env({"RT_SHADOW_COMPACT": mode}, lambda: wall_ms(any_hit_trace))
+                                for _ in range(3))[1]
+        same = torch.equal(outs["1"][0], outs["0"][0]) and torch.equal(outs["1"][1], outs["0"][1])
+        occ = {m: int((o[0] < s_bound).sum()) for m, o in outs.items()}
+        print(f"[variants] RT_SHADOW_COMPACT on {n_frame} unicorn any-hit shadow rays ({cname}): {n_live} live "
+              f"(half width {n_half}); wrapper ms 0 / 1 / force: {ms_c['0']:.3f} / {ms_c['1']:.3f} / "
+              f"{ms_c['force']:.3f}; \"1\" equal to \"0\" on every ray: {same}; occluded 0 / 1 / force: "
+              f"{occ['0']} / {occ['1']} / {occ['force']} | {smi}", flush=True)
+        check(same, f"RT_SHADOW_COMPACT=1 changed a result ({cname})")
+
+    # RT_LEAF_TRIS: K2 against its twin with 0 and 8 rows a leaf, and K2's
+    # time with 0, 8 and 64 on the sorted bounce rays, each beside the bound
+    # of the work the twin counts with that many rows.
+    leaf_ms, leaf_bound = {}, {}
+    k2_tables = uni.bvh8_nodes_flat.numel() * 4 + uni.bvh_leaf_tris.numel() * 4
+    for k in (0, 8, 64):
+        v: dict = {}
+        t_t, i_t = bt.bvh_traverse_twin(*bounce_args, visits=v, leaf_tris=k)
+        t_k, i_k = bt.bvh_traverse_cuda(*bounce_args, leaf_tris=k)
+        torch.cuda.synchronize()
+        same = (t_k == t_t).double().mean().item()
+        diff = i_k != i_t
+        ties = torch.equal(bt.leaf_t(uni, bounce_args[1], bounce_args[2], i_k)[diff],
+                           bt.leaf_t(uni, bounce_args[1], bounce_args[2], i_t)[diff])
+        check(same >= bt.T_EXACT_SHARE and ties, f"K2 with leaf_tris={k}: t equal on {same:.6%}, ties {ties}")
+        leaf_ms[k] = event_ms(lambda: bt.bvh_traverse_cuda(*bounce_args, leaf_tris=k), 10)
+        leaf_bound[k] = bound_ms(*walk_work(K2_OPS, v, n_frame, k2_tables))[0]
+        print(f"[variants] K2 RT_LEAF_TRIS={k} on {n_frame} sorted unicorn bounce rays: t bit-equal to the twin on "
+              f"{same:.6%} (differing indices ties: {ties}); per ray {v['nodes'] / n_frame:.4f} nodes, "
+              f"{v['leaves'] / n_frame:.4f} leaves, {v['tris'] / n_frame:.3f} triangles tested; kernel "
+              f"{leaf_ms[k]:.4f} ms, bound {leaf_bound[k]:.4f} ms | {smi}", flush=True)
+    print(f"[variants] K2 split: {leaf_ms[0]:.4f} ms the walk without leaf tests, {leaf_ms[64] - leaf_ms[0]:.4f} ms "
+          f"the leaf tests ({(leaf_ms[64] - leaf_ms[0]) / leaf_ms[64]:.2%}); 8 rows a leaf {leaf_ms[8]:.4f} ms "
+          f"(the walk then prunes less: each time is a bound of its part) | {smi}", flush=True)
+    for path in [p for p in path_launches if p.startswith("variant")]:
+        print(f"[launches] {path}: {path_launches[path]}", flush=True)
+    lap("variants")
 
     # 10) times. K1: the main path's launch (a whole 600x450 frame, 1.08M
     # lanes) at 64 spp beside its twin, and at 256 spp (the headline frame);
@@ -1202,56 +1521,13 @@ def main() -> int:
             rays = r.rays_traced()
             print(f"[time] {s} 600x450 {spp}spp: {wall:.4f} s, {rays / wall / 1e6:.1f} Mrays/s | {smi}",
                   flush=True)
-    # Where the time goes: one plain render for the wall, then one with every
-    # traversal (K2 or K4) and K3 launch timed by CUDA events recorded
-    # directly before and after it, behind a spacer (SPACER_CYCLES): the
-    # kernels' own durations. The rest of the wall is glue.
-    def breakdown(scene, spp, label, engine="mega"):
-        spent = {"trav": [], "K3": []}
-
-        def timed(launch, bucket):
-            def run(*a):
-                torch.cuda._sleep(SPACER_CYCLES)
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-                rc = launch(*a)
-                e1.record()
-                spent[bucket].append((e0, e1))
-                return rc
-            return run
-
-        def render():
-            r = Renderer(scene, RenderConfig(engine=engine), device="cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r.render_image(spp)
-            torch.cuda.synchronize()
-            return r, (time.perf_counter() - t0) * 1e3
-
-        r, wall = render()
-        real = (bt._lib, bb._launch_fn, keys._launch_fn)
-        k2_lib = types.SimpleNamespace(rt_bvh8_launch=timed(real[0]().rt_bvh8_launch, "trav"))
-        k4_fn, k3_fn = timed(real[1](), "trav"), timed(real[2](), "K3")
-        bt._lib, bb._launch_fn, keys._launch_fn = (lambda: k2_lib), (lambda: k4_fn), (lambda: k3_fn)
-        try:
-            render()
-        finally:
-            bt._lib, bb._launch_fn, keys._launch_fn = real
-        trav = sum(a.elapsed_time(b) for a, b in spent["trav"])
-        k3 = sum(a.elapsed_time(b) for a, b in spent["K3"])
-        rays = r.rays_traced()
-        print(f"[time] {label} 600x450 {spp}spp: {wall / 1e3:.4f} s, {rays / wall / 1e3:.2f} Mrays/s; breakdown "
-              f"wall {wall:.1f} ms = traversal kernels {trav:.1f} ms ({len(spent['trav'])} launches) + K3 kernels "
-              f"{k3:.1f} ms ({len(spent['K3'])} launches) + glue {wall - trav - k3:.1f} ms (kernel times: events "
-              f"directly around each launch of a second render) | {smi}", flush=True)
-        return len(spent["trav"]), len(spent["K3"])
-
     per_frame = {"K1": k1_per_frame["cornell_box"]}
-    per_frame["K2"], per_frame["K3"] = breakdown(uni, 16, "flying_unicorn (K2)")
+    bd = breakdown(uni, 16, "flying_unicorn (K2)")
+    per_frame["K2"], per_frame["K3"] = bd["n_trav"], bd["n_k3"]
     print(f"[time] flying_unicorn 600x450 16spp: {unicorn_wall:.4f} s, "
           f"{unicorn_rays_n / unicorn_wall / 1e6:.2f} Mrays/s | {smi}", flush=True)
     for variant, label in (("widesmem", "K2"), ("binary", "K4")):
-        n_trav, _ = with_variant(variant, lambda: breakdown(crew, 16, f"crewmate_phong ({label})"))
+        n_trav = with_variant(variant, lambda: breakdown(crew, 16, f"crewmate_phong ({label})"))["n_trav"]
     per_frame["K4"] = n_trav
     # The fused engine: K2, K4 and K3 on its double-width batch (2.16M rays
     # sorted by the key, a sixth parked), then its frames' breakdowns.
@@ -1263,13 +1539,10 @@ def main() -> int:
           f"| {smi}", flush=True)
     breakdown(uni, 16, "flying_unicorn fused (K2)", "fused")
     with_variant("binary", lambda: breakdown(crew, 16, "crewmate_phong fused (K4)", "fused"))
-    r = Renderer(scenes["cornell_box"], RenderConfig(use_mis=True), device="cuda")
-    t0 = time.perf_counter()
-    r.render_image(256)
-    wall = time.perf_counter() - t0
-    rays = r.rays_traced()
-    print(f"[time] cornell_box MIS 600x450 256spp (regen): {wall:.4f} s, {rays / wall / 1e6:.1f} Mrays/s | {smi}",
-          flush=True)
+    # cornell MIS: the 64 spp render of the Phong/MIS path (its 256 spp
+    # render, ~95 s, left the script when [variants] came).
+    print(f"[time] cornell_box MIS 600x450 64spp (regen): {mis_wall:.4f} s, {mis_rays / mis_wall / 1e6:.1f} Mrays/s "
+          f"| {smi}", flush=True)
 
     lap("times")
     none = "no single PyTorch call computes this function"
@@ -1292,6 +1565,8 @@ def main() -> int:
             "ms": k2_ms, "plain_ms": k2_twin_ms, "bound_ms": k2_bound, "bound_by": k2_by,
             "library_ms": None, "library": none, "launches_per_frame": per_frame["K2"],
             "launches_per_fused_frame": fc["K2"],
+            "leaf_tris_ms": {str(k): t for k, t in leaf_ms.items()},
+            "leaf_tris_bound_ms": {str(k): t for k, t in leaf_bound.items()},
             "redesigned": REDESIGNED["K2"], "launches_by_path": {path: counts["K2"] for path, counts in path_launches.items()},
         },
         {

@@ -19,8 +19,28 @@ and of its wrapper ``bvh_intersect_pallas`` :551-776. Four parts:
   and unsorts; a ray that finds no triangle below its ``t_init`` keeps
   ``t_init``; the index is clipped to [0, T-1].
 
-Not ported: the env-gated variants ``RT_SHADOW_COMPACT``, ``RT_BVH_VSORT``
-and ``RT_SORT_GROUP`` (negative results on the TPU).
+The JAX wrapper's measurement hooks, each read at each call with JAX's
+name and meaning (``utils/env.py``; a value outside a hook's set raises):
+
+- ``RT_LEAF_TRIS=k`` (``bvh_kernel.py:300-303``): K2 and its twin test only
+  the first k triangles of each leaf (k = 0 times the walk without its
+  leaf tests; a timing probe, its t are bounds, not hits). K4 has no such
+  argument, so under ``RT_BVH_KERNEL=binary`` it raises;
+- ``RT_SORT_GROUP=G`` (``bvh_kernel.py:722-729``): the wrapper's sort
+  orders groups of G consecutive rays by their least key and moves them
+  whole (``keys.group_order``), where G divides the ray count;
+- ``RT_SHADOW_COMPACT`` = ``1`` / ``force`` (``bvh_kernel.py:639-685``), for
+  any-hit queries only: resolved rays join the key's miss bit, so they sort
+  to the tail, and the walk launches on the first half (rounded up to
+  JAX's 1024-ray packets) when the live rays fit there (``force``: always,
+  a timing probe). The tail keeps its ``t_init`` and index 0, as the walk
+  would return them. The live count is read on the host, under this hook
+  only. The regen engine's shadow rays are not any-hit queries (JAX keeps
+  ``any_hit`` off, ``render/wavefront.py:510-514``), so a frame is not
+  changed by it.
+
+Not ported: ``RT_BVH_VSORT`` (torch has no multi-operand sort; the default
+chain is already one stable key sort and one row gather).
 """
 
 from __future__ import annotations
@@ -37,12 +57,17 @@ from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
 from raytracer_tpu_torch.ops import bvh
 from raytracer_tpu_torch.ops.bvh_binary import bvh_binary_cuda, bvh_binary_twin
-from raytracer_tpu_torch.ops.keys import coherence_order
+from raytracer_tpu_torch.ops.keys import coherence_key, coherence_order, group_order, sort_group
+from raytracer_tpu_torch.utils import env
 
 INF = 3.0e38
 
 # RT_BVH_KERNEL values that run K2; any other value runs K4.
 WIDE_VARIANTS = ("wide", "widemxu", "widesmem")
+
+# JAX's ray packet (8 x 128): RT_SHADOW_COMPACT's half width is rounded up
+# to whole packets, as bvh_kernel.py:655-656 rounds it.
+PACKET = 1024
 
 # Largest stack bound the kernel takes (BVH8_MAX_STACK in ops/csrc/bvh8.cu);
 # a launch traps a walk deeper than the scene's bvh8_max_stack.
@@ -68,6 +93,14 @@ def _check_stack(scene: SceneArrays) -> None:
         )
 
 
+def _leaf_rows(leaf_tris: int | None) -> int:
+    """The rows a leaf tests: ``leaf_tris`` (``RT_LEAF_TRIS``), at most the
+    leaf size, which None stands for."""
+    if leaf_tris is not None and leaf_tris < 0:
+        raise ValueError(f"leaf_tris {leaf_tris} < 0")
+    return bvh.MAX_LEAF if leaf_tris is None else min(leaf_tris, bvh.MAX_LEAF)
+
+
 def _inv_dir(d: torch.Tensor) -> torch.Tensor:
     tiny = torch.tensor(1e-12, dtype=torch.float32, device=d.device)
     return 1.0 / torch.where(torch.abs(d) < 1e-12, tiny, d)
@@ -75,7 +108,7 @@ def _inv_dir(d: torch.Tensor) -> torch.Tensor:
 
 def bvh_traverse_twin(
     scene: SceneArrays, ro, rd, t_init: torch.Tensor, resolved0: torch.Tensor,
-    any_hit: bool, eps: Epsilons, visits: dict | None = None,
+    any_hit: bool, eps: Epsilons, visits: dict | None = None, leaf_tris: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch traversal on the rays' device -> (t f32[N], idx i32[N]).
 
@@ -83,15 +116,17 @@ def bvh_traverse_twin(
     where no triangle was found; not clipped. ``visits``, when given, is a
     dict into which the walk adds its counts: ``nodes`` (wide nodes
     visited), ``leaves`` (leaves visited), ``tris`` (the real triangles of
-    the visited leaves, padding not counted) and ``cand`` (triangles whose
-    t could still win when their leaf was entered: the only ones whose u
-    and v the search needs).
+    the visited leaves that were tested, padding not counted) and ``cand``
+    (triangles whose t could still win when their leaf was entered: the
+    only ones whose u and v the search needs). ``leaf_tris`` (``RT_LEAF_TRIS``;
+    None: all) tests only the first ``leaf_tris`` triangles of each leaf.
     """
     _check_stack(scene)
     ro, rd = as3(ro), as3(rd)
     dev = ro[0].device
     n = ro[0].shape[0]
     ml = bvh.MAX_LEAF
+    k_test = _leaf_rows(leaf_tris)
     nodes = scene.bvh8_nodes_flat.to(dev).view(-1, 8, 8)
     tris = scene.bvh_leaf_tris.to(dev).view(-1, ml, 12)
     inv = [_inv_dir(d) for d in rd]
@@ -121,10 +156,10 @@ def bvh_traverse_twin(
         if visits is not None:
             visits["nodes"] += int(ids.numel() - li.numel())
             visits["leaves"] += int(li.numel())
-            visits["tris"] += int(group_count[-x[is_leaf] - 1].sum())
-        if li.numel():
+            visits["tris"] += int(group_count[-x[is_leaf] - 1].clamp(max=k_test).sum())
+        if li.numel() and k_test:
             g = -x[is_leaf] - 1
-            f = tris[g]  # [L, ml, 12]
+            f = tris[g, :k_test]  # [L, k_test, 12]
             o = [c[li][:, None] for c in ro]
             d = [c[li][:, None] for c in rd]
 
@@ -205,7 +240,7 @@ def _lib():
     fn.argtypes = (
         [ctypes.c_void_p] * 8  # ro.xyz, rd.xyz, t_init, resolved0
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]  # nodes, tris
-        + [ctypes.c_int] * 5  # n, base, max_leaf, any_hit, stack_depth
+        + [ctypes.c_int] * 6  # n, base, max_leaf, any_hit, stack_depth, leaf_tris
         + [ctypes.c_float, ctypes.c_float]  # tri_tmin, tri_parallel
         + [ctypes.c_void_p] * 3  # t_out, idx_out, stream
     )
@@ -215,12 +250,14 @@ def _lib():
 
 def bvh_traverse_cuda(
     scene: SceneArrays, ro, rd, t_init: torch.Tensor, resolved0: torch.Tensor,
-    any_hit: bool, eps: Epsilons,
+    any_hit: bool, eps: Epsilons, leaf_tris: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on the rays' device and current stream; same
-    outputs as ``bvh_traverse_twin``. Raises on any fault."""
+    outputs as ``bvh_traverse_twin`` (``leaf_tris`` as there). Raises on any
+    fault."""
     global LAUNCHES
     _check_stack(scene)
+    rows = _leaf_rows(leaf_tris)
     ro, rd = as3(ro), as3(rd)
     dev = ro[0].device
     if dev.type != "cuda":
@@ -246,7 +283,7 @@ def bvh_traverse_cuda(
             *(c.data_ptr() for c in cols), res.data_ptr(),
             nodes.data_ptr(), nodes.shape[0], tris.data_ptr(), tris.shape[0],
             n, scene.bvh_tri_start, bvh.MAX_LEAF, int(any_hit),
-            scene.bvh8_max_stack, eps.tri_tmin, eps.tri_parallel,
+            scene.bvh8_max_stack, rows, eps.tri_tmin, eps.tri_parallel,
             t_out.data_ptr(), idx_out.data_ptr(), stream,
         )
     if rc != 0:
@@ -258,16 +295,21 @@ def bvh_traverse_cuda(
 
 def bvh_traverse(scene, ro, rd, t_init, resolved0, any_hit, eps):
     """K2 or K4 as ``RT_BVH_KERNEL`` selects (default ``widesmem``: K2):
-    the twin for CPU rays, the kernel for CUDA rays."""
+    the twin for CPU rays, the kernel for CUDA rays. K2 takes
+    ``RT_LEAF_TRIS``."""
     dev = as3(ro)[0].device
     binary = os.environ.get("RT_BVH_KERNEL", "widesmem") not in WIDE_VARIANTS
-    if dev.type == "cpu":
-        fn = bvh_binary_twin if binary else bvh_traverse_twin
-    elif dev.type == "cuda":
-        fn = bvh_binary_cuda if binary else bvh_traverse_cuda
-    else:
+    leaf_tris = env.count("RT_LEAF_TRIS", 0)
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    return fn(scene, ro, rd, t_init, resolved0, any_hit, eps)
+    if binary and leaf_tris is not None:
+        raise ValueError("RT_LEAF_TRIS is a probe of K2's leaves; RT_BVH_KERNEL selects K4, which has none")
+    if binary:
+        fn = bvh_binary_twin if dev.type == "cpu" else bvh_binary_cuda
+    else:
+        fn = bvh_traverse_twin if dev.type == "cpu" else bvh_traverse_cuda
+    kw = {} if leaf_tris is None else {"leaf_tris": leaf_tris}
+    return fn(scene, ro, rd, t_init, resolved0, any_hit, eps, **kw)
 
 
 def leaf_t(scene: SceneArrays, ro, rd, idx: torch.Tensor) -> torch.Tensor:
@@ -300,12 +342,45 @@ def bvh_intersect(
     if resolved0 is None:
         resolved0 = torch.zeros(n, dtype=torch.bool, device=dev)
     fields = [*ro3, *rd3, t_init.to(torch.float32), resolved0.to(torch.bool)]
-    order = None
-    if not presorted:
+
+    def walk(fs):
+        return bvh_traverse(scene, fs[0:3], fs[3:6], fs[6], fs[7], any_hit, eps)
+
+    compact = env.choice("RT_SHADOW_COMPACT", "0", ("0", "1", "force")) if any_hit and n > PACKET else "0"
+    g = 1 if presorted or compact != "0" else sort_group(n)
+    if presorted:
+        t, idx = walk(fields)
+    elif compact != "0":
+        t, idx = _compacted(scene, fields, walk, eps, compact == "force")
+    elif g > 1:
+        # Groups of g rays move whole, and move back whole.
+        order_g = group_order(scene, ro3, rd3, eps, g)
+        t, idx = walk([f.view(-1, g)[order_g].view(-1) for f in fields])
+        t = torch.empty_like(t).view(-1, g).index_put_((order_g,), t.view(-1, g)).view(-1)
+        idx = torch.empty_like(idx).view(-1, g).index_put_((order_g,), idx.view(-1, g)).view(-1)
+    else:
         order = coherence_order(scene, ro3, rd3, eps)
-        fields = [f[order] for f in fields]
-    t, idx = bvh_traverse(scene, fields[0:3], fields[3:6], fields[6], fields[7], any_hit, eps)
-    if order is not None:
+        t, idx = walk([f[order] for f in fields])
         t = torch.empty_like(t).index_put_((order,), t)
         idx = torch.empty_like(idx).index_put_((order,), idx)
     return t, idx.clamp(0, scene.tri_a.shape[0] - 1)
+
+
+def _compacted(scene, fields, walk, eps, force: bool):
+    """``RT_SHADOW_COMPACT``: the rays sorted with the resolved ones in the
+    key's miss group, the walk on the sorted head of half width when the
+    live rays fit there (``force``: always), the tail at its ``t_init`` and
+    index 0; unsorted -> (t, idx)."""
+    n = fields[0].shape[0]
+    key = coherence_key(scene, fields[0:3], fields[3:6], eps) | (fields[7].to(torch.int32) << 30)
+    order = torch.argsort(key, stable=True)
+    n_half = (-(-n // PACKET) + 1) // 2 * PACKET
+    # A host read of the live count, made under this hook only.
+    if force or int(((key >> 30) == 0).sum()) <= n_half:
+        head, tail = order[:n_half], order[n_half:]
+        t_h, i_h = walk([f[head] for f in fields])
+        t = torch.cat([t_h, fields[6][tail]])
+        idx = torch.cat([i_h, torch.zeros(tail.numel(), dtype=i_h.dtype, device=i_h.device)])
+    else:
+        t, idx = walk([f[order] for f in fields])
+    return torch.empty_like(t).index_put_((order,), t), torch.empty_like(idx).index_put_((order,), idx)

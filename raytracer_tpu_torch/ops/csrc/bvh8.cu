@@ -46,6 +46,9 @@
 // - The node table is read from device memory through the read-only cache.
 //   (A copy in each block's shared memory takes the carve-out from L1, and
 //   on the unicorn, 58 KB a block, cuts the resident blocks.)
+// - leaf_tris (RT_LEAF_TRIS, bvh_kernel.py:300-303) bounds the rows a leaf
+//   tests: max_leaf (all) on every path but that timing probe, which sets
+//   0 to time the walk without its leaf tests, or k to time a part of them.
 // raytracer_tpu_torch/tools/kernel_steps.py builds each alternative named
 // in brackets and times it against this kernel on the card.
 //
@@ -63,7 +66,7 @@
 #define BVH8_BLOCK 128
 
 struct TravParams {
-  int n, n_nodes, n_groups, base, max_leaf, any_hit, stack_depth;
+  int n, n_nodes, n_groups, base, max_leaf, any_hit, stack_depth, leaf_tris;
   float tri_tmin, tri_parallel;
 };
 
@@ -98,7 +101,8 @@ __device__ __forceinline__ void walk(
       if (g >= p.n_groups) continue;
       const int first = g * p.max_leaf;
       const float4* tri = tris + (size_t)first * 3;
-      for (int j = 0; j <= last - first; ++j) {
+      const int n_rows = min(last - first + 1, p.leaf_tris);
+      for (int j = 0; j < n_rows; ++j) {
         const float4 a = __ldg(tri + 3 * j), b = __ldg(tri + 3 * j + 1),
                      c = __ldg(tri + 3 * j + 2);
         const float denom = a.x * dx + a.y * dy + a.z * dz;
@@ -172,15 +176,17 @@ __global__ void __launch_bounds__(BVH8_BLOCK, 1) bvh8_kernel(
 extern "C" int rt_bvh8_max_stack() { return BVH8_MAX_STACK; }
 
 // All pointers are device pointers; resolved0 is one byte per ray (0 or 1).
-// stack_depth is the scene's stack bound (<= BVH8_MAX_STACK).
+// stack_depth is the scene's stack bound (<= BVH8_MAX_STACK); leaf_tris the
+// rows a leaf tests at most (max_leaf: all).
 extern "C" int rt_bvh8_launch(const float* rox, const float* roy, const float* roz,
                               const float* rdx, const float* rdy, const float* rdz,
                               const float* t_init, const uint8_t* resolved0, const float* nodes,
                               int n_nodes, const float* tris, int n_tri_rows, int n, int base,
-                              int max_leaf, int any_hit, int stack_depth, float tri_tmin,
+                              int max_leaf, int any_hit, int stack_depth, int leaf_tris,
+                              float tri_tmin,
                               float tri_parallel, float* t_out, int32_t* idx_out, void* stream) {
   if (n < 0 || max_leaf <= 0 || n_tri_rows % max_leaf != 0 || stack_depth < 1 ||
-      stack_depth > BVH8_MAX_STACK)
+      stack_depth > BVH8_MAX_STACK || leaf_tris < 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   TravParams p;
@@ -191,6 +197,7 @@ extern "C" int rt_bvh8_launch(const float* rox, const float* roy, const float* r
   p.max_leaf = max_leaf;
   p.any_hit = any_hit;
   p.stack_depth = stack_depth;
+  p.leaf_tris = leaf_tris;
   p.tri_tmin = tri_tmin;
   p.tri_parallel = tri_parallel;
   const int blocks = (n + BVH8_BLOCK - 1) / BVH8_BLOCK;

@@ -20,7 +20,9 @@ built at first use, counted in ``LAUNCHES``), and the wrapper
 ``coherence_key``, which runs the twin for CPU tensors and the kernel for
 CUDA tensors and never falls back. Both refuse a cut of more than
 ``KEY_CUT_LIMIT`` boxes, whose index would not fit the key's 13-bit field.
-``coherence_order`` sorts by the key.
+``coherence_order`` sorts by the key; ``group_order``, under
+``RT_SORT_GROUP=G`` (``sort_group``), sorts groups of G consecutive rays by
+their least key.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from raytracer_tpu_torch.config import Epsilons
 from raytracer_tpu_torch.models.scene import SceneArrays
 from raytracer_tpu_torch.models.vecmath import as3
+from raytracer_tpu_torch.utils import env
 
 # Cut boxes the kernel's by-value table holds (KEY_MAX_CUT in
 # ops/csrc/coherence_key.cu); the loader builds 32 (ops/bvh.py::MAX_CUT),
@@ -190,3 +193,21 @@ def coherence_order(scene: SceneArrays, ro, rd, eps: Epsilons) -> torch.Tensor:
     """[N] i64 permutation that sorts the rays by key (stable: equal keys
     keep their order)."""
     return torch.argsort(coherence_key(scene, ro, rd, eps), stable=True)
+
+
+def sort_group(n: int) -> int:
+    """``RT_SORT_GROUP`` (read at each call; default 1): the G of the
+    group-quantised order, or 1, the per-ray order, when G does not divide
+    the ``n`` rays (``raytracer_tpu/render/wavefront.py:84, :383``)."""
+    g = env.count("RT_SORT_GROUP", 1) or 1
+    return g if n % g == 0 else 1
+
+
+def group_order(scene: SceneArrays, ro, rd, eps: Epsilons, g: int) -> torch.Tensor:
+    """[N/g] i64 permutation of the groups of ``g`` consecutive rays, sorted
+    by the least key of each group (stable), as
+    ``raytracer_tpu/render/wavefront.py:386-388`` orders them. The rays move
+    as whole groups: row ``i`` of the ordered ``x.view(N/g, g*C)`` is group
+    ``order[i]``."""
+    key = coherence_key(scene, ro, rd, eps)
+    return torch.argsort(key.view(-1, g).amin(dim=1), stable=True)

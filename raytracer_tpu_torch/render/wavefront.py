@@ -38,13 +38,46 @@ a bounce is weighted ``pdf_prev/(pdf_prev + pdf_light_sa)``, where
 ``pdf_prev`` (a 16th state column, present only under MIS) is the density
 of the bounce that led there, ``BIG`` after a camera ray or a mirror bounce.
 
-Left out: the env-gated negative
-results of the JAX engine (deferred and reversed shadows, group sorts,
-ablations), the bf16 state pair (the state here is f32) and the bitcast
-packing of int state into float columns.
+The JAX engine's measurement hooks, each read at each call with JAX's name
+and meaning (``utils/env.py``; a value outside a hook's set raises), none
+set by the server or ``tools/render.py``:
+
+- ``RT_PERMUTE_STATE=0`` (``wavefront.py:65``): no lane permutation; the
+  traces sort and unsort their own rays (as ``permute=False``);
+- ``RT_SORT_GROUP=G`` (``wavefront.py:84``): the permutation moves groups
+  of G consecutive lanes, ordered by their least key, where G divides the
+  loop's width (``ops/keys.py::group_order``);
+- ``RT_ABLATE`` = ``shadow`` / ``rng`` (``wavefront.py:403-407, :440, :531``),
+  timing probes whose frames are not images: ``shadow`` takes the shadow
+  lanes as visible and traces no shadow ray; ``rng`` gives every shading
+  draw (light, roulette, bounce, Phong lobe, mesh-light pick) the constant
+  of JAX's ``linspace(0.1, 0.9, n_draws)`` table at JAX's position
+  (``ablate_draws``), camera jitter stays random. Each warns;
+- ``RT_STATE_BF16=1`` (``wavefront.py:224-245``): beta and emis each ride
+  one column of two bf16 halves, rounded to nearest (``pack2``), through
+  the permutation's and the tail compaction's gathers: 15 gathered float
+  columns become 12. **The port's default is f32 state** (JAX's is 1): the
+  bf16 pair was a TPU gather saving, and the f32 frame is the one held
+  against the references;
+- ``RT_SHADOW_REVERSE=1`` (``wavefront.py:106``; BVH scenes with a sphere
+  light): the shadow segment runs from the light sample to the surface,
+  ``presorted`` in the main ray's order (no K3, sort or unsort for it),
+  against the scene with the light sphere masked out of the sphere set of
+  that trace only;
+- ``RT_DEFER_SHADOW=1`` (``wavefront.py:136``; BVH scenes with the
+  permutation, not under ``RT_SHADOW_REVERSE``): a shadow query and its
+  unweighted direct term ride the lane state (``s_ro``, ``s_rd``,
+  ``s_cap``, ``pend``: 10 more columns) into the next iteration, resolve
+  ``presorted`` beside its main trace and bank ``vis * pend``; a lane
+  with a pending query holds work, so the loop and the tail compaction
+  keep it, and the band ends with one more iteration.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import NamedTuple
 
 import torch
 
@@ -54,9 +87,10 @@ from raytracer_tpu_torch.models.camera import camera_rays3
 from raytracer_tpu_torch.models.scene import BRDF_SPECULAR, LIGHT_SPHERE, SceneArrays
 from raytracer_tpu_torch.ops import brdf
 from raytracer_tpu_torch.ops.intersect import ScenePre, trace_soa, trace_t
-from raytracer_tpu_torch.ops.keys import coherence_order
+from raytracer_tpu_torch.ops.keys import coherence_order, group_order, sort_group
 from raytracer_tpu_torch.ops.megakernel import uniform
 from raytracer_tpu_torch.render.integrator import sample_light3
+from raytracer_tpu_torch.utils import env
 
 # Parking spot for lanes with no ray this iteration: far outside any
 # reference-scale scene, pointing away, so every test misses at once and
@@ -67,13 +101,65 @@ PARK_RD = (1.0, 0.0, 0.0)
 # emission takes MIS weight 1.
 BIG = 1e30
 
-# Float state columns: ro, rd, beta (path throughput), emis (weight of the
-# next hit's emission), acc (the lane's banked radiance), and under MIS
-# pdf_prev (the density of the bounce that reached the next hit).
-RO, RD, BETA, EMIS, ACC = slice(0, 3), slice(3, 6), slice(6, 9), slice(9, 12), slice(12, 15)
-PDF = 15
 # Int state columns: active, j (samples started), slot, depth.
 ACTIVE, J, SLOT, DEPTH = 0, 1, 2, 3
+# Float state columns of the loop's carry: ro, rd, beta (path throughput),
+# emis (weight of the next hit's emission), acc (the lane's banked
+# radiance); under MIS pdf_prev (the density of the bounce that reached the
+# next hit); under RT_DEFER_SHADOW the pending query (s_ro, s_rd, s_cap)
+# and its direct term pend. Under RT_STATE_BF16 the gathered rows hold
+# beta and emis as one column of bf16 pairs (pack2).
+ACC = slice(12, 15)
+
+
+class Hooks(NamedTuple):
+    """The regen engine's measurement hooks (see the module docstring)."""
+
+    permute: bool  # RT_PERMUTE_STATE
+    ablate: str  # RT_ABLATE: "", "shadow" or "rng"
+    state_bf16: bool  # RT_STATE_BF16
+    reverse: bool  # RT_SHADOW_REVERSE
+    defer: bool  # RT_DEFER_SHADOW
+
+
+def read_hooks() -> Hooks:
+    return Hooks(
+        permute=env.flag("RT_PERMUTE_STATE", True),
+        ablate=env.choice("RT_ABLATE", "", ("", "shadow", "rng")),
+        state_bf16=env.flag("RT_STATE_BF16", False),
+        reverse=env.flag("RT_SHADOW_REVERSE", False),
+        defer=env.flag("RT_DEFER_SHADOW", False),
+    )
+
+
+def pack2(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two f32 tensors -> one f32 tensor of the bits (bf16(hi) << 16) |
+    bf16(lo), each rounded to nearest (``wavefront.py:235-239``)."""
+    pair = torch.stack([lo.to(torch.bfloat16), hi.to(torch.bfloat16)], dim=-1)  # little-endian: lo first
+    return pair.view(torch.float32).squeeze(-1)
+
+
+def unpack2(col: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pack2``'s inverse -> (hi, lo) as f32 (``wavefront.py:241-245``)."""
+    pair = col.contiguous().view(torch.bfloat16).view(*col.shape, 2).float()
+    return pair[..., 1], pair[..., 0]
+
+
+def ablate_draws(scene: SceneArrays) -> dict[int, float]:
+    """``RT_ABLATE=rng``: the constant of each shading draw the scene uses,
+    by the port's draw number. JAX lays its draws out as [light (2, or 3
+    for a mesh light), roulette, bounce (2, or 3 with Phong)] and gives
+    position i the value i of ``linspace(0.1, 0.9, n_draws)``; here in f32
+    correctly rounded (JAX's eager and jitted tables differ by an ulp)."""
+    light = 3 if scene.light_type != LIGHT_SPHERE else 2
+    bsdf = 3 if scene.has_phong else 2
+    table = torch.linspace(0.1, 0.9, light + 1 + bsdf, dtype=torch.float64).float().tolist()
+    at = {2: 0, 3: 1, 4: light, 5: light + 1, 6: light + 2}
+    if light == 3:
+        at[8] = 2
+    if bsdf == 3:
+        at[7] = light + 3
+    return {draw: table[i] for draw, i in at.items()}
 
 
 def tail_widths(n: int, cfg: RenderConfig, use_bvh: bool) -> list[int]:
@@ -128,8 +214,11 @@ def render_band_regen(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render a row band -> (sums f32[rows, W, 4, 3], rays traced i64 scalar),
     on the scene's device. ``permute=False`` keeps the lanes in slot order
-    (the traces then sort and unsort around the traversal themselves)."""
+    (the traces then sort and unsort around the traversal themselves), as
+    ``RT_PERMUTE_STATE=0`` does. Reads the hooks of ``read_hooks`` once."""
+    hooks = read_hooks()
     eps = cfg.eps
+    margin = eps.visibility_margin
     mis = cfg.use_mis
     w = cfg.width
     n = rows * w * 4
@@ -138,34 +227,77 @@ def render_band_regen(
     light_e = scene.obj_emitted[scene.light_idx]
     hard_cap = num_samples * (cfg.max_depth + 2) + 64
     bvh = scene.use_bvh
-    permute = permute and bvh
+    permute = permute and hooks.permute and bvh
     sphere_light = scene.light_type == LIGHT_SPHERE
     cull = bvh and sphere_light
+    reverse = hooks.reverse and bvh and sphere_light
+    deferred = hooks.defer and permute and not reverse
+    bf16 = hooks.state_bf16
+    ablate = hooks.ablate
+    draws = ablate_draws(scene) if ablate == "rng" else None
+    if ablate:
+        warnings.warn(f"RT_ABLATE={ablate}: a timing probe, the frame is not an image", RuntimeWarning,
+                      stacklevel=2)
+    # The reversed segment leaves the light sphere's surface, which cannot
+    # occlude it, but where f32 root noise could fake a hit just above eps:
+    # its trace sees every sphere but the light.
+    scene_shadow = (
+        dataclasses.replace(scene, sph_valid=scene.sph_valid & (scene.sph_obj != scene.light_idx))
+        if reverse else scene
+    )
     seed_u = seed & 0xFFFFFFFF
     base = y0 * w * 4
+    c_sh = 16 if mis else 15  # first column of the pending query (deferred)
 
-    fs = torch.zeros((n, 16 if mis else 15), dtype=f32, device=dev)
+    fs = torch.zeros((n, c_sh + (10 if deferred else 0)), dtype=f32, device=dev)
+    if deferred:
+        fs[:, c_sh:c_sh + 3] = PARK_RO
+        fs[:, c_sh + 3:c_sh + 6] = torch.tensor(PARK_RD, dtype=f32, device=dev)
     ints = torch.zeros((n, 4), dtype=i32, device=dev)
     ints[:, SLOT] = torch.arange(base, base + n, dtype=i32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
 
-    def pack(ro, rd, beta, emis, acc, pdf_prev) -> torch.Tensor:
-        cols = [vm.stack3(ro), vm.stack3(rd), beta, emis, acc]
+    def pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow: bool = False) -> torch.Tensor:
+        """The state as rows: the loop's carry, or (``narrow``) the
+        gathered rows with beta and emis as bf16 pairs."""
+        cols = [vm.stack3(ro), vm.stack3(rd)]
+        cols += [pack2(beta, emis)] if narrow else [beta, emis]
+        cols.append(acc)
         if mis:
             cols.append(pdf_prev[:, None])
+        if deferred:
+            s_ro, s_rd, s_cap, pend = sh
+            cols += [vm.stack3(s_ro), vm.stack3(s_rd), s_cap[:, None], pend]
         return torch.cat(cols, dim=1)
+
+    def unpack(fs: torch.Tensor, narrow: bool = False):
+        """``pack``'s inverse -> (ro, rd, beta, emis, acc, pdf_prev, sh)."""
+        if narrow:
+            beta, emis = unpack2(fs[:, 6:9])
+            c = 9
+        else:
+            beta, emis = fs[:, 6:9], fs[:, 9:12]
+            c = 12
+        acc = fs[:, c:c + 3]
+        c += 3
+        pdf_prev = fs[:, c] if mis else None
+        c += int(mis)
+        sh = None
+        if deferred:
+            sh = (vm.as3(fs[:, c:c + 3]), vm.as3(fs[:, c + 3:c + 6]), fs[:, c + 6], fs[:, c + 7:c + 10])
+        return vm.as3(fs[:, 0:3]), vm.as3(fs[:, 3:6]), beta, emis, acc, pdf_prev, sh
 
     def step(it: int, fs: torch.Tensor, ints: torch.Tensor, rays: torch.Tensor):
         active = ints[:, ACTIVE] != 0
         j = ints[:, J]
         slot = ints[:, SLOT]
         depth = ints[:, DEPTH]
-        ro, rd = vm.as3(fs[:, RO]), vm.as3(fs[:, RD])
-        beta, emis, acc = fs[:, BETA], fs[:, EMIS], fs[:, ACC]
-        pdf_prev = fs[:, PDF] if mis else None
+        ro, rd, beta, emis, acc, pdf_prev, sh = unpack(fs)
         slot64 = slot.to(torch.int64)
 
         def u(draw: int) -> torch.Tensor:
+            if draws is not None and draw in draws:
+                return torch.full(slot64.shape, draws[draw], dtype=f32, device=dev)
             return uniform(seed_u, slot64, it, draw)
 
         # 1) regenerate: idle lanes start their next sample
@@ -192,20 +324,37 @@ def render_band_regen(
         ro = vm.where3(active, ro, PARK_RO)
         rd = vm.where3(active, rd, PARK_RD)
         if permute:
-            order = coherence_order(scene, ro, rd, eps)
-            fs = pack(ro, rd, beta, emis, acc, pdf_prev)[order]
-            ints = torch.stack([active.to(i32), j, slot, depth], dim=1)[order]
+            fs = pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow=bf16)
+            ints = torch.stack([active.to(i32), j, slot, depth], dim=1)
+            g = sort_group(ints.shape[0])
+            if g > 1:
+                order_g = group_order(scene, ro, rd, eps, g)
+                fs = fs.view(-1, g * fs.shape[1])[order_g].view(ints.shape[0], -1)
+                ints = ints.view(-1, g * 4)[order_g].view(-1, 4)
+            else:
+                order = coherence_order(scene, ro, rd, eps)
+                fs, ints = fs[order], ints[order]
             active, j, slot, depth = (ints[:, c] for c in range(4))
             active = active != 0
             slot64 = slot.to(torch.int64)
-            ro, rd = vm.as3(fs[:, RO]), vm.as3(fs[:, RD])
-            beta, emis, acc = fs[:, BETA], fs[:, EMIS], fs[:, ACC]
-            pdf_prev = fs[:, PDF] if mis else None
+            ro, rd, beta, emis, acc, pdf_prev, sh = unpack(fs, narrow=bf16)
 
         # 2) main trace: camera and continuation rays together
         rays = rays + active.sum()
         hit = trace_soa(scene, pre, ro, rd, eps, presorted=permute)
         valid = active & hit.valid
+
+        if deferred:
+            # 2b) the previous iteration's shadow queries, in this
+            # iteration's order: they leave the vertex the continuation ray
+            # leaves. Visible when the nearest hit is at or past the cap.
+            s_ro, s_rd, s_cap, pend = sh
+            if ablate == "shadow":
+                vis_prev = torch.ones_like(s_cap, dtype=torch.bool)
+            else:
+                sh_t, sh_valid = trace_t(scene, pre, s_ro, s_rd, eps, t_max=s_cap, presorted=True)
+                vis_prev = ~sh_valid | (sh_t >= s_cap)
+            acc = acc + torch.where(vis_prev[:, None], pend, 0.0)
 
         # 3) arrival: emission through the bounce
         em_next = scene.obj_emitted[hit.obj]
@@ -237,29 +386,48 @@ def render_band_regen(
         # A sample on the light's far side is self-occluded by the convex
         # light sphere; BVH scenes skip its trace.
         shadow = nee & (cos_y > 0.0) if cull else nee
-        sh_t, sh_valid = trace_t(
-            scene, pre,
-            vm.where3(shadow, x, PARK_RO), vm.where3(shadow, wi_d, PARK_RD), eps,
-            t_max=torch.where(shadow, dist - eps.visibility_margin, 0.0),
-        )
-        vis = ~sh_valid | (sh_t + eps.visibility_margin >= dist)
-        if cull:
+        cap = torch.where(shadow, dist - margin, 0.0)
+        vis = None  # deferred: resolved in the next iteration (2b)
+        if deferred:
+            sh = (vm.where3(shadow, x, PARK_RO), vm.where3(shadow, wi_d, PARK_RD), cap)
+        elif ablate == "shadow":
+            vis = shadow
+        elif reverse:
+            sh_t, sh_valid = trace_t(
+                scene_shadow, pre,
+                vm.where3(shadow, y, PARK_RO), vm.where3(shadow, vm.neg3(wi_d), PARK_RD), eps,
+                t_max=cap, presorted=True,
+            )
+            vis = ~sh_valid | (sh_t + margin >= dist)
+        else:
+            sh_t, sh_valid = trace_t(
+                scene, pre,
+                vm.where3(shadow, x, PARK_RO), vm.where3(shadow, wi_d, PARK_RD), eps,
+                t_max=cap,
+            )
+            vis = ~sh_valid | (sh_t + margin >= dist)
+        if vis is not None and cull:
             vis = vis & (cos_y > 0.0)
         f_d = brdf.eval_nonspecular3(mat, nrm, o3, wi_d, scene.has_phong)
         cos_x = vm.dot3(nrm, wi_d)
         if mis:
             pdf_l_sa_d = pdf_l * r2 / torch.clamp_min(cos_y, 1e-8)
             pdf_b_at = brdf.pdf3(mat, nrm, o3, wi_d)
-            ok = vis & (cos_y > 0.0) & (cos_x > 0.0)
+            ok = (cos_y > 0.0) & (cos_x > 0.0) if vis is None else vis & (cos_y > 0.0) & (cos_x > 0.0)
             direct = torch.where(
                 ok[:, None],
                 light_e[None, :] * f_d * (cos_x / (pdf_l_sa_d + pdf_b_at))[:, None],
                 0.0,
             )
+        elif vis is None:
+            direct = light_e[None, :] * f_d * (cos_x * cos_y / (r2 * pdf_l))[:, None]
         else:
             scale = torch.where(vis, 1.0, 0.0) * cos_x * cos_y / (r2 * pdf_l)
             direct = light_e[None, :] * f_d * scale[:, None]
-        acc = acc + torch.where(nee[:, None], beta * direct, 0.0)
+        if deferred:
+            sh = sh + (torch.where(shadow[:, None], beta * direct, 0.0),)
+        else:
+            acc = acc + torch.where(nee[:, None], beta * direct, 0.0)
 
         # 5) Russian roulette and the bounce
         wi, pdf_b, p, beta_next, live = bounce(scene, cfg, mat, is_spec, nrm, o3, depth, valid, beta, u)
@@ -275,12 +443,14 @@ def render_band_regen(
         # 6) continue; ended paths regenerate next iteration
         ro = vm.where3(live, x, ro)
         rd = vm.where3(live, wi, rd)
-        fs = pack(ro, rd, beta_next, emis, acc, pdf_prev)
+        fs = pack(ro, rd, beta_next, emis, acc, pdf_prev, sh)
         ints = torch.stack([live.to(i32), j, slot, depth], dim=1)
         return fs, ints, rays
 
-    def work(ints: torch.Tensor) -> torch.Tensor:
-        return (ints[:, ACTIVE] != 0) | (ints[:, J] < num_samples)
+    def work(fs: torch.Tensor, ints: torch.Tensor) -> torch.Tensor:
+        """Lanes with a path in flight, samples left or a pending query."""
+        busy = (ints[:, ACTIVE] != 0) | (ints[:, J] < num_samples)
+        return busy | (fs[:, c_sh + 6] > 0.0) if deferred else busy
 
     it = 0
 
@@ -288,7 +458,7 @@ def render_band_regen(
         """Step until no lane has work, ``hard_cap``, or <= ``limit`` lanes work."""
         nonlocal it
         while it < hard_cap:
-            if int(work(ints).sum()) <= limit:
+            if int(work(fs, ints).sum()) <= limit:
                 break
             fs, ints, rays = step(it, fs, ints, rays)
             it += 1
@@ -299,8 +469,12 @@ def render_band_regen(
         fs, ints, rays = run(fs, ints, rays, w2)
         # Stable: working lanes first in their current (coherent) order;
         # finished lanes' slots and sums leave with the tail rows.
-        order2 = torch.argsort((~work(ints)).to(i32), stable=True)
-        fs, ints = fs[order2], ints[order2]
+        order2 = torch.argsort((~work(fs, ints)).to(i32), stable=True)
+        if bf16:
+            fs = pack(*unpack(pack(*unpack(fs), narrow=True)[order2], narrow=True))
+        else:
+            fs = fs[order2]
+        ints = ints[order2]
         tail_slots.append(ints[w2:, SLOT])
         tail_accs.append(fs[w2:, ACC])
         fs, ints = fs[:w2], ints[:w2]

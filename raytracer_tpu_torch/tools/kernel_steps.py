@@ -307,7 +307,7 @@ EDITS: dict[str, tuple[str, list[tuple[str, str | None, str]]]] = {
          "        }\n"),
     ]),
     "K2_padded_rows": ("bvh8", [
-        ("      for (int j = 0; j <= last - first; ++j) {\n", None,
+        ("      for (int j = 0; j < n_rows; ++j) {\n", None,
          "      for (int j = 0; j < p.max_leaf; ++j) {\n"),
     ]),
     "K3_shipped": ("coherence_key", []),

@@ -144,6 +144,30 @@ def test_traversal_kernel_matches_twin_on_gpu(cuda, any_hit):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("leaf_tris", [0, 8, None])
+def test_traversal_kernel_leaf_tris_matches_twin_on_gpu(cuda, leaf_tris):
+    """RT_LEAF_TRIS's argument (None: every row) in K2 and in its twin."""
+    from raytracer_tpu_torch.ops import bvh_traverse as bt
+
+    eps = RenderConfig().eps
+    scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    n = 1 << 15
+    ro, rd = _unicorn_rays(scene, n, 6, cuda)
+    args = (scene, ro, rd, torch.full((n,), bt.INF, device=cuda), torch.zeros(n, dtype=torch.bool, device=cuda),
+            False, eps)
+    t_k, i_k = bt.bvh_traverse_cuda(*args, leaf_tris=leaf_tris)
+    t_t, i_t = bt.bvh_traverse_twin(*args, leaf_tris=leaf_tris)
+    torch.cuda.synchronize()
+    assert (t_k == t_t).double().mean().item() >= bt.T_EXACT_SHARE
+    diff = i_k != i_t
+    assert torch.equal(bt.leaf_t(scene, ro, rd, i_k)[diff], bt.leaf_t(scene, ro, rd, i_t)[diff])
+    if leaf_tris is None:
+        assert torch.equal(t_k, bt.bvh_traverse_cuda(*args, leaf_tris=10 ** 6)[0])
+    if leaf_tris == 0:
+        assert (t_k == bt.INF).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_binary_walk_kernel_matches_twin_on_gpu(cuda, any_hit):
     from raytracer_tpu_torch.ops import bvh_binary as bb

@@ -21,6 +21,7 @@ from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.models.scene import build_scene_arrays
 from raytracer_tpu_torch.ops import bvh
 from raytracer_tpu_torch.ops import bvh_traverse as bt
+from raytracer_tpu_torch.ops import keys
 from tests.test_bvh import _scene_with_mesh_bvh, random_tri_soup
 from tests.torch_cpu import jax_eps, one_torch_thread  # noqa: F401  (autouse)
 
@@ -209,3 +210,105 @@ def test_every_leaf_starts_its_own_group(name):
     bad[leaf.nonzero()[0][0], leaf.nonzero()[1][0]] += 1
     with pytest.raises(ValueError, match="group"):
         bvh.check_leaf_groups(bad, count)
+
+
+@pytest.mark.parametrize("leaf_tris", [bvh.MAX_LEAF, 10 ** 6])
+def test_leaf_tris_at_all_rows_is_the_default_walk(unicorn, leaf_tris):
+    """RT_LEAF_TRIS at or past the leaf size tests every triangle: the twin
+    equals today's on every ray, and so does the dispatch under the env."""
+    _, port = unicorn
+    ro, rd = _unicorn_rays(port, 512, 19)
+    args = (port, torch.from_numpy(ro), torch.from_numpy(rd), torch.full((512,), bt.INF),
+            torch.zeros(512, dtype=torch.bool), False, EPS)
+    t0, i0 = bt.bvh_traverse_twin(*args)
+    t1, i1 = bt.bvh_traverse_twin(*args, leaf_tris=leaf_tris)
+    assert torch.equal(t0, t1) and torch.equal(i0, i1) and (t0 < 1e30).sum() > 100
+
+
+@pytest.mark.parametrize("leaf_tris", [0, 8])
+def test_leaf_tris_tests_the_first_rows_only(unicorn, monkeypatch, leaf_tris):
+    """RT_LEAF_TRIS=k, a timing probe: every leaf tests its first k rows, so
+    a t is a real hit or t_init, never nearer than the full walk's, and the
+    twin counts at most k triangles a leaf; the dispatch reads the env."""
+    _, port = unicorn
+    ro, rd = _unicorn_rays(port, 512, 20)
+    args = (port, torch.from_numpy(ro), torch.from_numpy(rd), torch.full((512,), bt.INF),
+            torch.zeros(512, dtype=torch.bool), False, EPS)
+    t_all, _ = bt.bvh_traverse_twin(*args)
+    visits = {}
+    t, idx = bt.bvh_traverse_twin(*args, visits=visits, leaf_tris=leaf_tris)
+    assert (t >= t_all).all() and visits["leaves"] > 0
+    assert visits["tris"] <= leaf_tris * visits["leaves"]
+    if leaf_tris == 0:
+        assert (t == bt.INF).all() and (idx == 0).all() and visits["cand"] == 0
+    else:
+        hit = t < 1e30
+        assert hit.sum() > 50
+        assert torch.equal(bt.leaf_t(port, args[1][hit], args[2][hit], idx[hit]), t[hit])
+        assert ((idx[hit] - port.bvh_tri_start) % bvh.MAX_LEAF < leaf_tris).all()
+    monkeypatch.setenv("RT_LEAF_TRIS", str(leaf_tris))
+    t_env, i_env = bt.bvh_traverse(*args)
+    assert torch.equal(t_env, t) and torch.equal(i_env, idx)
+
+
+@pytest.mark.parametrize("group", [8, 3])
+def test_sort_group_in_the_wrapper_changes_no_hit(soup, monkeypatch, group):
+    """RT_SORT_GROUP=G sorts groups of G rays by their least key (3 does not
+    divide the 704 rays: the per-ray order): t and index bit-equal."""
+    _, port = soup
+    ro, rd = (torch.from_numpy(a) for a in _random_rays(704, 21))
+    t0, i0 = bt.bvh_intersect(port, ro, rd, EPS)
+    monkeypatch.setenv("RT_SORT_GROUP", str(group))
+    t1, i1 = bt.bvh_intersect(port, ro, rd, EPS)
+    assert torch.equal(t0, t1) and torch.equal(i0, i1) and (t0 < 1e30).sum() > 50
+
+
+@pytest.mark.parametrize("live_frac", [0.3, 0.9])
+def test_shadow_compaction_matches_jax_interpret(monkeypatch, live_frac):
+    """RT_SHADOW_COMPACT on bounded any-hit queries, as
+    tests/test_pallas_bvh.py:116-150 runs JAX's wrapper in interpret mode: a
+    third of the rays live (the walk on half the width) and nine tenths
+    (the full width). "1" gives the uncompacted t and index on every ray,
+    and JAX's occlusion; "force" leaves the rays sorted past the half width
+    at their t_init, as JAX's does."""
+    from raytracer_tpu.ops.pallas.bvh_kernel import bvh_intersect_pallas
+
+    monkeypatch.setenv("RT_BVH_KERNEL", "widesmem")
+    tris = random_tri_soup(150, seed=23)
+    ref, port = _scene_with_mesh_bvh(tris), _port_soup_scene(tris)
+    rng = np.random.default_rng(24)
+    n = 2500  # three packets: the half width is two
+    live = rng.random(n) < live_frac
+    ro = np.where(live[:, None], rng.uniform(-12, 12, (n, 3)), 3.0e7).astype(np.float32)
+    # Live rays aim at a triangle, so that they enter a cut box: nine tenths
+    # live then overflow the half width.
+    aim = tris[rng.integers(0, len(tris), n)].mean(axis=1) - ro
+    d = np.where(live[:, None], aim, [1.0, 0.0, 0.0])
+    rd = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    bound = np.where(live, rng.uniform(1.0, 25.0, n), 0.0).astype(np.float32)
+    occ = {}
+    for mode in ("0", "1", "force"):
+        monkeypatch.setenv("RT_SHADOW_COMPACT", mode)
+        t, i = bt.bvh_intersect(port, torch.from_numpy(ro), torch.from_numpy(rd), EPS,
+                                t_init=torch.from_numpy(bound), any_hit=True, resolved0=torch.from_numpy(~live))
+        occ[mode] = (t.numpy() < bound, t, i)
+    assert torch.equal(occ["1"][1], occ["0"][1]) and torch.equal(occ["1"][2], occ["0"][2])
+    assert occ["1"][0][live].sum() > 5 and not occ["1"][0][~live].any()
+    for mode in ("1", "force"):
+        monkeypatch.setenv("RT_SHADOW_COMPACT", mode)
+        t_j, _ = bvh_intersect_pallas(ref, jnp.asarray(ro), jnp.asarray(rd), jax_eps(EPS),
+                                      t_init=jnp.asarray(bound), any_hit=True,
+                                      resolved0=jnp.asarray((~live).astype(np.float32)), interpret=True)
+        np.testing.assert_array_equal(occ[mode][0], np.asarray(t_j) < bound)
+    # "force": the rays sorted past the half width keep t_init and index 0,
+    # the head is the uncompacted walk.
+    key = keys.coherence_key(port, torch.from_numpy(ro), torch.from_numpy(rd), EPS)
+    key = key | (torch.from_numpy(~live).to(torch.int32) << 30)
+    order = torch.argsort(key, stable=True)
+    head, tail = order[:2 * bt.PACKET], order[2 * bt.PACKET:]
+    _, t_f, i_f = occ["force"]
+    assert torch.equal(t_f[tail], torch.from_numpy(bound)[tail]) and (i_f[tail] == 0).all()
+    assert torch.equal(t_f[head], occ["0"][1][head]) and torch.equal(i_f[head], occ["0"][2][head])
+    # A third live fit the half width; nine tenths do not ("1" then walks
+    # every ray, "force" drops some).
+    assert int(((key >> 30) == 0).sum()) > 2 * bt.PACKET if live_frac > 0.5 else bool((key[tail] >> 30).all())
