@@ -32,6 +32,10 @@ the frame. Two properties follow:
     its band nor on its device); megakernel frames of different band
     heights agree statistically.
 
+Spans (``utils/timing.py``): ``rt.mesh.launch`` around the devices'
+megakernel launches (a regen band's own ``rt.regen.*`` spans stand for
+it) and ``rt.mesh.gather`` around the gather to the first device.
+
 The same device may be listed more than once (``[cuda:0, cuda:0]`` runs the
 whole path on one card; ``["cpu"] * n`` on the CPU).
 """
@@ -47,6 +51,7 @@ from raytracer_tpu_torch.ops.megakernel import band_seed, render_band_mega
 from raytracer_tpu_torch.render.renderer import SHARDED_ENGINES, Renderer
 from raytracer_tpu_torch.render.wavefront import render_band_regen
 from raytracer_tpu_torch.utils.device import resolve_device
+from raytracer_tpu_torch.utils.timing import span
 
 
 class ShardedRenderer(Renderer):
@@ -119,9 +124,12 @@ class ShardedRenderer(Renderer):
     ):
         if rows % self.n_dev:
             raise ValueError(f"a band of {rows} rows does not split over {self.n_dev} devices")
-        parts = self.device_bands(y0, rows, k * n_passes, salt)
-        sums = torch.cat([s.to(self.device) for s, _ in parts])
-        rays = torch.stack([r.to(self.device) for _, r in parts]).sum()
+        # A regen band's own rt.regen.* spans stand for its launch.
+        with span("rt.mesh.launch" if self.engine == "mega" else None):
+            parts = self.device_bands(y0, rows, k * n_passes, salt)
+        with span("rt.mesh.gather"):
+            sums = torch.cat([s.to(self.device) for s, _ in parts])
+            rays = torch.stack([r.to(self.device) for _, r in parts]).sum()
         if return_rays:
             return sums, rays
         self.ray_counts.append(rays)

@@ -32,6 +32,13 @@ for the frame.
 Finalize reproduces the reference's per-subpixel clamp-then-average and
 gamma pipeline (src/server.rs:360-368) in numpy (``finalize``) and on the
 device (``finalize_device``, ``finalize_device_dyn``).
+
+Spans (``utils/timing.py``; live only while a ``torch.profiler`` records):
+``rt.mega.launch`` around each K1 launch (``pack_params``, the band
+table's pin and the launch), ``rt.render.finalize`` and ``rt.render.pull``
+(the blocking copy of the u8 pixels, also counted in ``host.syncs``). The
+regen engine's own spans stand for its bands; no span covers a band or a
+frame, which are the caller's.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from raytracer_tpu_torch.render.integrator import radiance
 from raytracer_tpu_torch.render.wavefront import render_band_regen
 from raytracer_tpu_torch.render.wavefront_fused import render_band_fused
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from raytracer_tpu_torch.utils.timing import count, span
 
 
 # The values of ``cfg.engine`` the port renders: all of the JAX package's.
@@ -329,10 +337,11 @@ class Renderer:
         renders) must use that form.
         """
         if self.engine == "mega":
-            sums, rays = render_band_mega(
-                self.scene, self.cfg, y0, rows, k * n_passes,
-                band_seed(self.cfg.seed, y0, salt),
-            )
+            with span("rt.mega.launch"):
+                sums, rays = render_band_mega(
+                    self.scene, self.cfg, y0, rows, k * n_passes,
+                    band_seed(self.cfg.seed, y0, salt),
+                )
         elif self.engine == "simple":
             sums, rays = _render_band_impl(
                 self.scene, self.pre, self.cfg, y0, rows, k, n_passes,
@@ -366,7 +375,17 @@ class Renderer:
                 sums = out if sums is None else sums + out
         else:
             sums = self.render_band_sums(y0, rows, k, n_passes)
-        return finalize_device(sums, k * n_passes).cpu().numpy(), rows
+        return self._pull(sums, k * n_passes), rows
+
+    @staticmethod
+    def _pull(sums: torch.Tensor, num_samples: int) -> np.ndarray:
+        """Finalize on the device and wait for the u8 pixels on the host."""
+        with span("rt.render.finalize"):
+            rgb = finalize_device(sums, num_samples)
+        with span("rt.render.pull"):
+            out = rgb.cpu().numpy()
+        count("host.syncs")
+        return out
 
     def render_image(self, spp: int, cancelled=None) -> np.ndarray | None:
         """Full image -> u8 [H, W, 3] with row 0 at the TOP (client space:
@@ -378,14 +397,15 @@ class Renderer:
             if cancelled is not None and cancelled():
                 return None
             y0s = [y0 for y0, _ in self.iter_bands(spp)]
-            sums, rays = render_bands_mega(
-                self.scene, cfg, y0s, rows, k * n_passes,
-                [band_seed(cfg.seed, y0, 0) for y0 in y0s],
-            )
+            with span("rt.mega.launch"):
+                sums, rays = render_bands_mega(
+                    self.scene, cfg, y0s, rows, k * n_passes,
+                    [band_seed(cfg.seed, y0, 0) for y0 in y0s],
+                )
             self.ray_counts.append(rays)
             # The bands tile the render rows [0, H) in order (rows divides H);
             # render row y lands at label row H-1-y.
-            rgb = finalize_device(sums, k * n_passes).cpu().numpy()
+            rgb = self._pull(sums, k * n_passes)
             return np.ascontiguousarray(rgb.reshape(-1, cfg.width, 3)[: cfg.height][::-1])
         img = np.zeros((cfg.height, cfg.width, 3), np.uint8)
         for y0, rows in self.iter_bands(spp):

@@ -31,6 +31,18 @@ has Phong materials or a mesh light). So a pixel's result depends neither
 on the lane order (the permutation and the compaction change nothing) nor
 on the band that holds it.
 
+Spans and counters (``utils/timing.py``; live only while a ``torch.profiler``
+records): each iteration's loop test is ``rt.regen.sync``, and its work
+``rt.regen.camera`` (regenerate, park), ``rt.regen.sort`` (key, argsort,
+the state's gather), ``rt.regen.trace`` (the main trace),
+``rt.regen.shadow`` (light sample and shadow trace) and ``rt.regen.shade``
+(emission, material gather, BSDF, roulette, bounce, repack; two spans, on
+either side of the shadow); each tail compaction is ``rt.regen.compact``
+and the slot scatter at the end ``rt.regen.scatter``. Counted:
+``regen.steps``, ``regen.lanes_stepped`` (the loop's width a step),
+``regen.lanes_working`` (the lanes the loop test found working, a step)
+and ``host.syncs`` (one a loop test).
+
 MIS (``cfg.use_mis``) weighs the two strategies that reach the light by the
 balance heuristic: the light sample's direct term is
 ``light_e*f*cos_x/(pdf_light_sa + pdf_bsdf)``, and emission reached through
@@ -91,6 +103,7 @@ from raytracer_tpu_torch.ops.keys import coherence_order, group_order, sort_grou
 from raytracer_tpu_torch.ops.megakernel import uniform
 from raytracer_tpu_torch.render.integrator import sample_light3
 from raytracer_tpu_torch.utils import env
+from raytracer_tpu_torch.utils.timing import count, span
 
 # Parking spot for lanes with no ray this iteration: far outside any
 # reference-scale scene, pointing away, so every test misses at once and
@@ -288,163 +301,172 @@ def render_band_regen(
         return vm.as3(fs[:, 0:3]), vm.as3(fs[:, 3:6]), beta, emis, acc, pdf_prev, sh
 
     def step(it: int, fs: torch.Tensor, ints: torch.Tensor, rays: torch.Tensor):
-        active = ints[:, ACTIVE] != 0
-        j = ints[:, J]
-        slot = ints[:, SLOT]
-        depth = ints[:, DEPTH]
-        ro, rd, beta, emis, acc, pdf_prev, sh = unpack(fs)
-        slot64 = slot.to(torch.int64)
-
-        def u(draw: int) -> torch.Tensor:
-            if draws is not None and draw in draws:
-                return torch.full(slot64.shape, draws[draw], dtype=f32, device=dev)
-            return uniform(seed_u, slot64, it, draw)
-
-        # 1) regenerate: idle lanes start their next sample
-        got = ~active & (j < num_samples)
-        pix = slot // 4
-        sub = slot % 4
-        cro, crd = camera_rays3(
-            scene, w, cfg.height, cfg.fov_scale,
-            (pix % w).to(f32), (pix // w).to(f32), (sub % 2).to(f32), (sub // 2).to(f32),
-            u(0), u(1),
-        )
-        g3 = got[:, None]
-        ro = vm.where3(got, cro, ro)
-        rd = vm.where3(got, crd, rd)
-        depth = torch.where(got, 0, depth)
-        beta = torch.where(g3, 1.0, beta)
-        emis = torch.where(g3, 1.0, emis)
-        if mis:
-            pdf_prev = torch.where(got, BIG, pdf_prev)
-        j = torch.where(got, j + 1, j)
-        active = active | got
-
-        # 1b) park lanes without work; permute the lane state by the key
-        ro = vm.where3(active, ro, PARK_RO)
-        rd = vm.where3(active, rd, PARK_RD)
-        if permute:
-            fs = pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow=bf16)
-            ints = torch.stack([active.to(i32), j, slot, depth], dim=1)
-            g = sort_group(ints.shape[0])
-            if g > 1:
-                order_g = group_order(scene, ro, rd, eps, g)
-                fs = fs.view(-1, g * fs.shape[1])[order_g].view(ints.shape[0], -1)
-                ints = ints.view(-1, g * 4)[order_g].view(-1, 4)
-            else:
-                order = coherence_order(scene, ro, rd, eps)
-                fs, ints = fs[order], ints[order]
-            active, j, slot, depth = (ints[:, c] for c in range(4))
-            active = active != 0
+        with span("rt.regen.camera"):
+            active = ints[:, ACTIVE] != 0
+            j = ints[:, J]
+            slot = ints[:, SLOT]
+            depth = ints[:, DEPTH]
+            ro, rd, beta, emis, acc, pdf_prev, sh = unpack(fs)
             slot64 = slot.to(torch.int64)
-            ro, rd, beta, emis, acc, pdf_prev, sh = unpack(fs, narrow=bf16)
+
+            def u(draw: int) -> torch.Tensor:
+                if draws is not None and draw in draws:
+                    return torch.full(slot64.shape, draws[draw], dtype=f32, device=dev)
+                return uniform(seed_u, slot64, it, draw)
+
+            # 1) regenerate: idle lanes start their next sample
+            got = ~active & (j < num_samples)
+            pix = slot // 4
+            sub = slot % 4
+            cro, crd = camera_rays3(
+                scene, w, cfg.height, cfg.fov_scale,
+                (pix % w).to(f32), (pix // w).to(f32), (sub % 2).to(f32), (sub // 2).to(f32),
+                u(0), u(1),
+            )
+            g3 = got[:, None]
+            ro = vm.where3(got, cro, ro)
+            rd = vm.where3(got, crd, rd)
+            depth = torch.where(got, 0, depth)
+            beta = torch.where(g3, 1.0, beta)
+            emis = torch.where(g3, 1.0, emis)
+            if mis:
+                pdf_prev = torch.where(got, BIG, pdf_prev)
+            j = torch.where(got, j + 1, j)
+            active = active | got
+
+            # 1b) park lanes without work
+            ro = vm.where3(active, ro, PARK_RO)
+            rd = vm.where3(active, rd, PARK_RD)
+        if permute:
+            # 1c) permute the lane state by the key
+            with span("rt.regen.sort"):
+                fs = pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow=bf16)
+                ints = torch.stack([active.to(i32), j, slot, depth], dim=1)
+                g = sort_group(ints.shape[0])
+                if g > 1:
+                    order_g = group_order(scene, ro, rd, eps, g)
+                    fs = fs.view(-1, g * fs.shape[1])[order_g].view(ints.shape[0], -1)
+                    ints = ints.view(-1, g * 4)[order_g].view(-1, 4)
+                else:
+                    order = coherence_order(scene, ro, rd, eps)
+                    fs, ints = fs[order], ints[order]
+                active, j, slot, depth = (ints[:, c] for c in range(4))
+                active = active != 0
+                slot64 = slot.to(torch.int64)
+                ro, rd, beta, emis, acc, pdf_prev, sh = unpack(fs, narrow=bf16)
 
         # 2) main trace: camera and continuation rays together
-        rays = rays + active.sum()
-        hit = trace_soa(scene, pre, ro, rd, eps, presorted=permute)
-        valid = active & hit.valid
+        with span("rt.regen.trace"):
+            rays = rays + active.sum()
+            hit = trace_soa(scene, pre, ro, rd, eps, presorted=permute)
+            valid = active & hit.valid
 
         if deferred:
             # 2b) the previous iteration's shadow queries, in this
             # iteration's order: they leave the vertex the continuation ray
             # leaves. Visible when the nearest hit is at or past the cap.
-            s_ro, s_rd, s_cap, pend = sh
-            if ablate == "shadow":
-                vis_prev = torch.ones_like(s_cap, dtype=torch.bool)
-            else:
-                sh_t, sh_valid = trace_t(scene, pre, s_ro, s_rd, eps, t_max=s_cap, presorted=True)
-                vis_prev = ~sh_valid | (sh_t >= s_cap)
-            acc = acc + torch.where(vis_prev[:, None], pend, 0.0)
+            with span("rt.regen.shadow"):
+                s_ro, s_rd, s_cap, pend = sh
+                if ablate == "shadow":
+                    vis_prev = torch.ones_like(s_cap, dtype=torch.bool)
+                else:
+                    sh_t, sh_valid = trace_t(scene, pre, s_ro, s_rd, eps, t_max=s_cap, presorted=True)
+                    vis_prev = ~sh_valid | (sh_t >= s_cap)
+                acc = acc + torch.where(vis_prev[:, None], pend, 0.0)
 
-        # 3) arrival: emission through the bounce
-        em_next = scene.obj_emitted[hit.obj]
-        if mis:
-            cos_yb = torch.clamp_min(-vm.dot3(hit.n, rd), 1e-8)
-            pdf_l_sa = (hit.t * hit.t) / (cos_yb * scene.light_area)
-            w_b = torch.where(hit.obj == scene.light_idx, pdf_prev / (pdf_prev + pdf_l_sa), 1.0)
-            acc = torch.where(valid[:, None], acc + emis * em_next * w_b[:, None], acc)
-        else:
-            acc = torch.where(valid[:, None], acc + emis * em_next, acc)
-        x, nrm = hit.pos, hit.n
-        o3 = vm.neg3(rd)
-        depth = torch.where(active, depth + 1, depth)
+        with span("rt.regen.shade"):
+            # 3) arrival: emission through the bounce
+            em_next = scene.obj_emitted[hit.obj]
+            if mis:
+                cos_yb = torch.clamp_min(-vm.dot3(hit.n, rd), 1e-8)
+                pdf_l_sa = (hit.t * hit.t) / (cos_yb * scene.light_area)
+                w_b = torch.where(hit.obj == scene.light_idx, pdf_prev / (pdf_prev + pdf_l_sa), 1.0)
+                acc = torch.where(valid[:, None], acc + emis * em_next * w_b[:, None], acc)
+            else:
+                acc = torch.where(valid[:, None], acc + emis * em_next, acc)
+            x, nrm = hit.pos, hit.n
+            o3 = vm.neg3(rd)
+            depth = torch.where(active, depth + 1, depth)
+            mat = brdf.gather_mat(scene, hit.obj)
+            is_spec = mat.brdf_type == BRDF_SPECULAR
 
         # 4) NEE: a light sample and its bounded shadow ray
-        mat = brdf.gather_mat(scene, hit.obj)
-        is_spec = mat.brdf_type == BRDF_SPECULAR
-        ul = u(2)
-        y, ny, pdf_l = sample_light3(scene, ul, u(3), ul if sphere_light else u(8))
-        to_y = vm.sub3(y, x)
-        dist = torch.sqrt(vm.norm2_3(to_y))
-        wi_d = vm.scale3(to_y, 1.0 / torch.clamp_min(dist, 1e-20))
-        r2 = torch.clamp_min(dist * dist, 1e-20)
-        cos_y = -vm.dot3(ny, wi_d)
-        nee = valid & ~is_spec
-        # Every NEE lane counts as a ray, culled or not: the reference traces
-        # every visibility ray (src/scene.rs:218-229).
-        rays = rays + nee.sum()
-        # A sample on the light's far side is self-occluded by the convex
-        # light sphere; BVH scenes skip its trace.
-        shadow = nee & (cos_y > 0.0) if cull else nee
-        cap = torch.where(shadow, dist - margin, 0.0)
-        vis = None  # deferred: resolved in the next iteration (2b)
-        if deferred:
-            sh = (vm.where3(shadow, x, PARK_RO), vm.where3(shadow, wi_d, PARK_RD), cap)
-        elif ablate == "shadow":
-            vis = shadow
-        elif reverse:
-            sh_t, sh_valid = trace_t(
-                scene_shadow, pre,
-                vm.where3(shadow, y, PARK_RO), vm.where3(shadow, vm.neg3(wi_d), PARK_RD), eps,
-                t_max=cap, presorted=True,
-            )
-            vis = ~sh_valid | (sh_t + margin >= dist)
-        else:
-            sh_t, sh_valid = trace_t(
-                scene, pre,
-                vm.where3(shadow, x, PARK_RO), vm.where3(shadow, wi_d, PARK_RD), eps,
-                t_max=cap,
-            )
-            vis = ~sh_valid | (sh_t + margin >= dist)
-        if vis is not None and cull:
-            vis = vis & (cos_y > 0.0)
-        f_d = brdf.eval_nonspecular3(mat, nrm, o3, wi_d, scene.has_phong)
-        cos_x = vm.dot3(nrm, wi_d)
-        if mis:
-            pdf_l_sa_d = pdf_l * r2 / torch.clamp_min(cos_y, 1e-8)
-            pdf_b_at = brdf.pdf3(mat, nrm, o3, wi_d)
-            ok = (cos_y > 0.0) & (cos_x > 0.0) if vis is None else vis & (cos_y > 0.0) & (cos_x > 0.0)
-            direct = torch.where(
-                ok[:, None],
-                light_e[None, :] * f_d * (cos_x / (pdf_l_sa_d + pdf_b_at))[:, None],
-                0.0,
-            )
-        elif vis is None:
-            direct = light_e[None, :] * f_d * (cos_x * cos_y / (r2 * pdf_l))[:, None]
-        else:
-            scale = torch.where(vis, 1.0, 0.0) * cos_x * cos_y / (r2 * pdf_l)
-            direct = light_e[None, :] * f_d * scale[:, None]
-        if deferred:
-            sh = sh + (torch.where(shadow[:, None], beta * direct, 0.0),)
-        else:
-            acc = acc + torch.where(nee[:, None], beta * direct, 0.0)
+        with span("rt.regen.shadow"):
+            ul = u(2)
+            y, ny, pdf_l = sample_light3(scene, ul, u(3), ul if sphere_light else u(8))
+            to_y = vm.sub3(y, x)
+            dist = torch.sqrt(vm.norm2_3(to_y))
+            wi_d = vm.scale3(to_y, 1.0 / torch.clamp_min(dist, 1e-20))
+            r2 = torch.clamp_min(dist * dist, 1e-20)
+            cos_y = -vm.dot3(ny, wi_d)
+            nee = valid & ~is_spec
+            # Every NEE lane counts as a ray, culled or not: the reference traces
+            # every visibility ray (src/scene.rs:218-229).
+            rays = rays + nee.sum()
+            # A sample on the light's far side is self-occluded by the convex
+            # light sphere; BVH scenes skip its trace.
+            shadow = nee & (cos_y > 0.0) if cull else nee
+            cap = torch.where(shadow, dist - margin, 0.0)
+            vis = None  # deferred: resolved in the next iteration (2b)
+            if deferred:
+                sh = (vm.where3(shadow, x, PARK_RO), vm.where3(shadow, wi_d, PARK_RD), cap)
+            elif ablate == "shadow":
+                vis = shadow
+            elif reverse:
+                sh_t, sh_valid = trace_t(
+                    scene_shadow, pre,
+                    vm.where3(shadow, y, PARK_RO), vm.where3(shadow, vm.neg3(wi_d), PARK_RD), eps,
+                    t_max=cap, presorted=True,
+                )
+                vis = ~sh_valid | (sh_t + margin >= dist)
+            else:
+                sh_t, sh_valid = trace_t(
+                    scene, pre,
+                    vm.where3(shadow, x, PARK_RO), vm.where3(shadow, wi_d, PARK_RD), eps,
+                    t_max=cap,
+                )
+                vis = ~sh_valid | (sh_t + margin >= dist)
+            if vis is not None and cull:
+                vis = vis & (cos_y > 0.0)
 
-        # 5) Russian roulette and the bounce
-        wi, pdf_b, p, beta_next, live = bounce(scene, cfg, mat, is_spec, nrm, o3, depth, valid, beta, u)
-        # A mirror bounce collects the next hit's emission at beta/p. Without
-        # MIS a non-specular one collects none (NEE counted the light); with
-        # MIS it collects at beta_next times the balance weight.
-        if mis:
-            emis = torch.where(is_spec[:, None], beta / p[:, None], beta_next)
-            pdf_prev = torch.where(is_spec, BIG, pdf_b)
-        else:
-            emis = torch.where(is_spec[:, None], beta / p[:, None], 0.0)
+        with span("rt.regen.shade"):
+            f_d = brdf.eval_nonspecular3(mat, nrm, o3, wi_d, scene.has_phong)
+            cos_x = vm.dot3(nrm, wi_d)
+            if mis:
+                pdf_l_sa_d = pdf_l * r2 / torch.clamp_min(cos_y, 1e-8)
+                pdf_b_at = brdf.pdf3(mat, nrm, o3, wi_d)
+                ok = (cos_y > 0.0) & (cos_x > 0.0) if vis is None else vis & (cos_y > 0.0) & (cos_x > 0.0)
+                direct = torch.where(
+                    ok[:, None],
+                    light_e[None, :] * f_d * (cos_x / (pdf_l_sa_d + pdf_b_at))[:, None],
+                    0.0,
+                )
+            elif vis is None:
+                direct = light_e[None, :] * f_d * (cos_x * cos_y / (r2 * pdf_l))[:, None]
+            else:
+                scale = torch.where(vis, 1.0, 0.0) * cos_x * cos_y / (r2 * pdf_l)
+                direct = light_e[None, :] * f_d * scale[:, None]
+            if deferred:
+                sh = sh + (torch.where(shadow[:, None], beta * direct, 0.0),)
+            else:
+                acc = acc + torch.where(nee[:, None], beta * direct, 0.0)
 
-        # 6) continue; ended paths regenerate next iteration
-        ro = vm.where3(live, x, ro)
-        rd = vm.where3(live, wi, rd)
-        fs = pack(ro, rd, beta_next, emis, acc, pdf_prev, sh)
-        ints = torch.stack([live.to(i32), j, slot, depth], dim=1)
+            # 5) Russian roulette and the bounce
+            wi, pdf_b, p, beta_next, live = bounce(scene, cfg, mat, is_spec, nrm, o3, depth, valid, beta, u)
+            # A mirror bounce collects the next hit's emission at beta/p. Without
+            # MIS a non-specular one collects none (NEE counted the light); with
+            # MIS it collects at beta_next times the balance weight.
+            if mis:
+                emis = torch.where(is_spec[:, None], beta / p[:, None], beta_next)
+                pdf_prev = torch.where(is_spec, BIG, pdf_b)
+            else:
+                emis = torch.where(is_spec[:, None], beta / p[:, None], 0.0)
+
+            # 6) continue; ended paths regenerate next iteration
+            ro = vm.where3(live, x, ro)
+            rd = vm.where3(live, wi, rd)
+            fs = pack(ro, rd, beta_next, emis, acc, pdf_prev, sh)
+            ints = torch.stack([live.to(i32), j, slot, depth], dim=1)
         return fs, ints, rays
 
     def work(fs: torch.Tensor, ints: torch.Tensor) -> torch.Tensor:
@@ -458,8 +480,14 @@ def render_band_regen(
         """Step until no lane has work, ``hard_cap``, or <= ``limit`` lanes work."""
         nonlocal it
         while it < hard_cap:
-            if int(work(fs, ints).sum()) <= limit:
+            with span("rt.regen.sync"):
+                working = int(work(fs, ints).sum())
+            count("host.syncs")
+            if working <= limit:
                 break
+            count("regen.steps")
+            count("regen.lanes_stepped", ints.shape[0])
+            count("regen.lanes_working", working)
             fs, ints, rays = step(it, fs, ints, rays)
             it += 1
         return fs, ints, rays
@@ -469,19 +497,21 @@ def render_band_regen(
         fs, ints, rays = run(fs, ints, rays, w2)
         # Stable: working lanes first in their current (coherent) order;
         # finished lanes' slots and sums leave with the tail rows.
-        order2 = torch.argsort((~work(fs, ints)).to(i32), stable=True)
-        if bf16:
-            fs = pack(*unpack(pack(*unpack(fs), narrow=True)[order2], narrow=True))
-        else:
-            fs = fs[order2]
-        ints = ints[order2]
-        tail_slots.append(ints[w2:, SLOT])
-        tail_accs.append(fs[w2:, ACC])
-        fs, ints = fs[:w2], ints[:w2]
+        with span("rt.regen.compact"):
+            order2 = torch.argsort((~work(fs, ints)).to(i32), stable=True)
+            if bf16:
+                fs = pack(*unpack(pack(*unpack(fs), narrow=True)[order2], narrow=True))
+            else:
+                fs = fs[order2]
+            ints = ints[order2]
+            tail_slots.append(ints[w2:, SLOT])
+            tail_accs.append(fs[w2:, ACC])
+            fs, ints = fs[:w2], ints[:w2]
     fs, ints, rays = run(fs, ints, rays, 0)
 
-    slot = torch.cat([ints[:, SLOT]] + tail_slots).to(torch.int64) - base
-    acc = torch.cat([fs[:, ACC]] + tail_accs)
-    out = torch.empty_like(acc)
-    out[slot] = acc
+    with span("rt.regen.scatter"):
+        slot = torch.cat([ints[:, SLOT]] + tail_slots).to(torch.int64) - base
+        acc = torch.cat([fs[:, ACC]] + tail_accs)
+        out = torch.empty_like(acc)
+        out[slot] = acc
     return out.view(rows, w, 4, 3), rays

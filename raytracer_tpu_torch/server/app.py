@@ -23,6 +23,7 @@ import logging
 import random
 import string
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field, replace
 
@@ -123,18 +124,28 @@ class RenderJob:
         progressive: bool = False,
         want_stats: bool = False,
         batch: bool = False,
+        arrived: float | None = None,
     ) -> bool:
         """Render + stream; returns True if stopped before completion.
 
         Callers flip the job to running with ``mark_running()`` first. The
         render's RenderStats land in ``self.stats``; ``want_stats`` also
         sends them to the client as a JSON text message after the pixels.
+        Their ``wall_s`` counts from ``arrived`` (``time.perf_counter()``
+        when the request came in; default: now), and their phases are
+        ``executor_wait`` (from a hand-off to the executor to its thread
+        starting), ``band`` (``render_band_sums``, which the engines' own
+        spans trace), ``pull`` (finalize and the wait for the u8 pixels;
+        span ``rt.server.pull``) and ``send`` (time in ``self.send``; span
+        ``rt.server.send``).
         """
         cancelled = self.cancel_token.is_cancelled
         cfg = renderer.cfg
         height = cfg.height
         loop = asyncio.get_running_loop()
         stats = RenderStats()
+        if arrived is not None:
+            stats.started = arrived
         stats.pixels = cfg.width * height
         if progressive:
             _, k_p_, n_chunks_ = renderer.plan_progressive(spp)
@@ -148,6 +159,27 @@ class RenderJob:
         # 60 pixels per message at the reference width; wider frames use 240.
         ppm = wire.PIXELS_PER_MSG if cfg.width <= 600 else 240
 
+        async def in_executor(fn, *args):
+            t_sub = time.perf_counter()
+
+            def timed():
+                stats.add("executor_wait", time.perf_counter() - t_sub)
+                return fn(*args)
+
+            return await loop.run_in_executor(None, timed)
+
+        def band(y0: int, rows: int, k: int, n: int, salt: int):
+            with stats.phase("band"):
+                return renderer.render_band_sums(y0, rows, k, n, salt=salt, return_rays=True)
+
+        def pull_rgb(sums, num_samples) -> np.ndarray:
+            with stats.phase("pull", span="rt.server.pull"):
+                return finalize_device_dyn(sums, num_samples).cpu().numpy()
+
+        async def send(msg) -> None:
+            with stats.phase("send", span="rt.server.send"):
+                await self.send(msg)
+
         async def stream_rows(y0: int, rows: int, rgb: np.ndarray) -> None:
             # rgb holds render rows [y0, y0+rows); wire labels are flipped:
             # label = height-1-y_render (src/server.rs:181).
@@ -159,13 +191,11 @@ class RenderJob:
                 rows_per_msg = max(1, (1 << 19) // bytes_per_row)
                 for i0 in range(0, valid, rows_per_msg):
                     i1 = min(i0 + rows_per_msg, valid)
-                    await self.send(
-                        wire.pack_rows_batched(height - 1 - (y0 + i0), rgb[i0:i1], ppm)
-                    )
+                    await send(wire.pack_rows_batched(height - 1 - (y0 + i0), rgb[i0:i1], ppm))
                 return
             for i in range(valid):
                 for msg in wire.pack_row(height - 1 - (y0 + i), rgb[i], ppm):
-                    await self.send(msg)
+                    await send(msg)
 
         _, k, n_passes = renderer.plan(spp)
         if n_passes == 0:
@@ -192,11 +222,14 @@ class RenderJob:
                 sched = [k_p] * n_chunks
 
             def dispatch(y0, chunk, kc, done):
-                out, nrays = renderer.render_band_sums(
-                    y0, rows_p, kc, 1, salt=chunk, return_rays=True
-                )
-                s = out if sums[y0] is None else sums[y0] + out
-                return s, nrays, _start_pull(finalize_device_dyn(s, done))
+                out, nrays = band(y0, rows_p, kc, 1, chunk)
+                with stats.phase("pull", span="rt.server.pull"):
+                    s = out if sums[y0] is None else sums[y0] + out
+                    return s, nrays, _start_pull(finalize_device_dyn(s, done))
+
+            def wait(ppull):
+                with stats.phase("pull", span="rt.server.pull"):
+                    return ppull()
 
             done = 0
             for chunk, kc in enumerate(sched):
@@ -206,19 +239,17 @@ class RenderJob:
                 for y0, rows in renderer.iter_bands(spp, rows_p):
                     if cancelled():
                         break
-                    s, nrays, pull = await loop.run_in_executor(
-                        None, dispatch, y0, chunk, kc, done
-                    )
+                    s, nrays, pull = await in_executor(dispatch, y0, chunk, kc, done)
                     sums[y0] = s
                     ray_counts.append(nrays)
                     bands += 1
                     if pending is not None:
                         py0, prows, ppull = pending
-                        await stream_rows(py0, prows, await loop.run_in_executor(None, ppull))
+                        await stream_rows(py0, prows, await in_executor(wait, ppull))
                     pending = (y0, rows, pull)
             if pending is not None and not cancelled():
                 py0, prows, ppull = pending
-                await stream_rows(py0, prows, await loop.run_in_executor(None, ppull))
+                await stream_rows(py0, prows, await in_executor(wait, ppull))
         else:
             # Each pixel streamed exactly once, band by band, as its band
             # completes all samples.
@@ -232,21 +263,12 @@ class RenderJob:
                 for g0 in range(0, n_passes, g):
                     if cancelled():
                         break
-                    out, nrays = await loop.run_in_executor(
-                        None,
-                        lambda y0=y0, g0=g0: renderer.render_band_sums(
-                            y0, rows_b, k, min(g, n_passes - g0), salt=g0,
-                            return_rays=True,
-                        ),
-                    )
+                    out, nrays = await in_executor(band, y0, rows_b, k, min(g, n_passes - g0), g0)
                     ray_counts.append(nrays)
                     bands += 1
                     sums = out if sums is None else sums + out
                 if sums is not None and not cancelled():
-                    rgb = await loop.run_in_executor(
-                        None,
-                        lambda sums=sums: finalize_device_dyn(sums, k * n_passes).cpu().numpy(),
-                    )
+                    rgb = await in_executor(pull_rgb, sums, k * n_passes)
                     await stream_rows(y0, rows, rgb)
 
         stats.bands = bands
@@ -353,6 +375,7 @@ class Server:
         job = RenderJob(send=send)
         try:
             async for raw in websocket:
+                arrived = time.perf_counter()
                 if isinstance(raw, (bytes, bytearray)):
                     continue
                 log.info("[%s] New message: %r", cid, raw)
@@ -390,11 +413,11 @@ class Server:
                         log.error("[%s] no renderer for %r at %dx%d: %s", cid, scene, w, h, e)
                         break
 
-                    async def run_render() -> None:
+                    async def run_render(arrived: float = arrived) -> None:
                         log.info("[%s] Rendering...", cid)
                         try:
                             stopped = await job.run(
-                                renderer, spp, progressive, want_stats, batch
+                                renderer, spp, progressive, want_stats, batch, arrived=arrived
                             )
                         except Exception:
                             log.exception("[%s] render failed", cid)

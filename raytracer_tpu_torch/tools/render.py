@@ -13,12 +13,15 @@ where the scene allows it, else regen; ``fused`` for the fused-trace engine).
 binary skip-link walk (K4) instead of the 8-wide traversal (K2). With
 several CUDA devices visible the row bands are spread over all of them
 unless ``--no-shard`` is given. ``--profile DIR`` writes a ``torch.profiler``
-Chrome trace of the render into DIR; ``tools/top_ops.py`` summarizes it.
+Chrome trace of the render into DIR, the program's ``rt.*`` spans among its
+slices (``tools/top_ops.py`` summarizes it), and prints the program's
+counters of the render (``utils/timing.py::counters``) after its stats.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -49,7 +52,7 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.models.loader import load_scene
     from raytracer_tpu_torch.render.renderer import make_renderer
     from raytracer_tpu_torch.utils.png import write_png
-    from raytracer_tpu_torch.utils.timing import RenderStats, device_trace
+    from raytracer_tpu_torch.utils.timing import RenderStats, counters, device_trace, reset_counters
 
     kwargs = dict(width=args.width, height=args.height, use_mis=args.mis, seed=args.seed,
                   engine=args.engine)
@@ -64,12 +67,15 @@ def main(argv=None) -> int:
         scene, cfg, device=args.device, sharded=False if args.no_shard else None
     )
     with stats.phase("render"), device_trace(args.profile, renderer.device):
+        reset_counters()
         img = renderer.render_image(args.spp)
     stats.rays = renderer.rays_traced()
 
     out = args.out or (args.scene.rsplit(".", 1)[0] + ".png")
     write_png(out, img)
     print(f"wrote {out}  {stats.summary()}", file=sys.stderr)
+    if args.profile:
+        print(f"counters {json.dumps(counters(), sort_keys=True)}", file=sys.stderr)
     return 0
 
 

@@ -1,7 +1,7 @@
 """The port's command-line tools and observability helpers on the CPU: the
 cases of ``tests/test_tools.py`` on the port (``tools.render`` with
 ``--mis`` and ``--profile``, ``tools.top_ops``, ``RenderStats``,
-``Throughput``, ``tools.parity``), ``tools.kbench``'s refusal without a
+``tools.parity``), ``tools.kbench``'s refusal without a
 card, and the BVH's leaf-size and cut-size hooks.
 """
 
@@ -14,13 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu.utils.timing import Throughput as JaxThroughput
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.tools import top_ops
 from raytracer_tpu_torch.tools.render import main as render_main
 from raytracer_tpu_torch.utils.png import read_png
-from raytracer_tpu_torch.utils.timing import RenderStats, Throughput, device_trace
+from raytracer_tpu_torch.utils.timing import RenderStats, device_trace
 from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
@@ -44,14 +43,16 @@ def test_render_cli_mis_flag(tmp_path):
     assert rc == 0 and os.path.exists(out)
 
 
-def test_render_cli_profile_trace(tmp_path):
+def test_render_cli_profile_trace(tmp_path, capsys):
     """--profile writes one Chrome trace of the render, which the analyzer
-    reads and ranks."""
+    reads and ranks, and prints the render's counters after its stats."""
     out = str(tmp_path / "prof.png")
     trace_dir = str(tmp_path / "trace")
     rc = render_main([CORNELL, "--spp", "4", "--out", out, "--width", "20", "--height", "15",
                       "--device", "cpu", "--profile", trace_dir])
     assert rc == 0
+    (line,) = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("counters ")]
+    assert json.loads(line[len("counters "):]) == {"host.syncs": 1}  # one K1 frame: one pull
     found = [f for f in os.listdir(trace_dir) if f.endswith(".trace.json.gz")]
     assert len(found) == 1, f"trace artifacts under {trace_dir}: {os.listdir(trace_dir)}"
 
@@ -137,17 +138,6 @@ def test_render_stats_phases_and_rates():
     assert s["phases"]["render"] >= 0.01
     assert s["mrays_per_s"] > 0
     assert s["pixels"] == 100
-
-
-def test_throughput_ema():
-    tp = Throughput(alpha=1.0)  # no smoothing: instantaneous
-    tp.tick(0)
-    time.sleep(0.01)
-    assert tp.tick(100) > 0
-    # The JAX package's meter on the same ticks, by the same arithmetic.
-    a, b = Throughput(alpha=0.5), JaxThroughput(alpha=0.5)
-    assert a.tick(1) == b.tick(1) == 0.0
-    assert vars(a).keys() == vars(b).keys()
 
 
 @pytest.mark.parametrize("name", ["flying_unicorn", "crewmate_phong"])
