@@ -66,7 +66,8 @@ Then the rest of what the port does, each at the reference's 600x450:
   its twin on the scene's rays;
 - ``[variants]`` the measurement hooks of the regen engine and of the
   traversal wrapper on flying_unicorn 16 spp, each frame's wall beside the
-  default's (medians of 3 runs, every variant and the default in turn),
+  default's (medians of 3 runs, every variant and the default in turn, each
+  the second frame of its renderer, whose first captured its CUDA graphs),
   its K2/K3/K4 launches and its traversal and K3 kernel time: the frames of
   ``RT_PERMUTE_STATE=0``, ``RT_SORT_GROUP=8`` and ``RT_SHADOW_COMPACT=1``
   equal to the default on every pixel (and on crewmate_phong under K4),
@@ -80,7 +81,10 @@ Then the rest of what the port does, each at the reference's 600x450:
 Each path runs with every launch count set to 0 just before it and read
 just after, and fails if one of its kernels was not launched. Every phase
 raises on failure, so the exit code is non-zero. Without CUDA it exits
-non-zero at once. ``[seconds]`` lines give each phase's time.
+non-zero at once. ``[seconds]`` lines give each phase's time. A regen
+renderer captures its loop steps as CUDA graphs in its first frame
+(``render.wavefront.StepGraphs``), so a wall taken on a fresh renderer's
+first frame includes those captures; the ``[variants]`` walls do not.
 
 Last come the times: each kernel per launch at the main path's shapes and
 per frame, beside its plain twin and its bound (the larger of its
@@ -434,7 +438,8 @@ def main() -> int:
     # then one with every traversal (K2 or K4) and K3 launch timed by CUDA
     # events recorded directly before and after it, behind a spacer
     # (SPACER_CYCLES): the kernels' own durations. The rest of the wall is
-    # glue.
+    # glue. The timed render steps eagerly: an event recorded in a captured
+    # step would not be recorded again by its replays.
     def breakdown(scene, spp, label, engine="mega", wall=None):
         spent = {"trav": [], "K3": []}
 
@@ -449,8 +454,10 @@ def main() -> int:
                 return rc
             return run
 
-        def render():
+        def render(graphed=True):
             r = Renderer(scene, RenderConfig(engine=engine), device="cuda")
+            if not graphed:
+                r.graphs = None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.render_image(spp)
@@ -464,7 +471,7 @@ def main() -> int:
         k4_fn, k3_fn = timed(real[1](), "trav"), timed(real[2](), "K3")
         bt._lib, bb._launch_fn, keys._launch_fn = (lambda: k2_lib), (lambda: k4_fn), (lambda: k3_fn)
         try:
-            r, _ = render()
+            r, _ = render(graphed=False)
         finally:
             bt._lib, bb._launch_fn, keys._launch_fn = real
         trav = sum(a.elapsed_time(b) for a, b in spent["trav"])
@@ -1314,8 +1321,10 @@ def main() -> int:
         return dict([label.split("=")]) if label != "default" else {}
 
     def variant_frame(scene):
-        zero_counts()
         r = Renderer(scene, RenderConfig(), device="cuda")
+        r.render_image(16)
+        r.ray_counts.clear()
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = r.render_image(16)

@@ -5,6 +5,12 @@ Port of ``raytracer_tpu/models/camera.py``. ``cx = (0.5135*w/h, 0, 0)``,
 by the tent filter. The scene's camera dir is used unnormalized in the sum
 and the ray direction is normalized. ``py`` is the render-space row
 (0 = bottom); callers flip when they assemble images.
+
+``camera_rays3`` builds the image-plane basis and the image size as device
+scalars at each call, which copies host numbers to the device; a caller
+that makes rays many times (the regen engine, once a loop step, and inside
+a CUDA graph, where no such copy may run) builds them once with
+``camera_frame`` and passes them in.
 """
 
 from __future__ import annotations
@@ -41,6 +47,15 @@ def camera_basis(scene: SceneArrays, width: int, height: int, fov_scale: float):
     return cx, cy
 
 
+def camera_frame(scene: SceneArrays, width: int, height: int, fov_scale: float):
+    """(cx, cy, w, h): ``camera_basis`` and the image size as f32 scalars,
+    on the scene's device; ``camera_rays3``'s optional ``frame``."""
+    dev = scene.device
+    w = torch.tensor(float(width), dtype=torch.float32, device=dev)
+    h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    return (*camera_basis(scene, width, height, fov_scale), w, h)
+
+
 def camera_rays3(
     scene: SceneArrays,
     width: int,
@@ -52,12 +67,17 @@ def camera_rays3(
     sy: torch.Tensor,  # [N] subpixel row in {0,1}
     u1: torch.Tensor,  # [N] uniform for dx
     u2: torch.Tensor,  # [N] uniform for dy
+    frame: tuple | None = None,  # camera_frame(scene, width, height, fov_scale)
 ):
-    """N camera rays in component form -> (ro=(x,y,z), rd=(x,y,z))."""
-    dev = px.device
-    w = torch.tensor(float(width), dtype=torch.float32, device=dev)
-    h = torch.tensor(float(height), dtype=torch.float32, device=dev)
-    cx, cy = camera_basis(scene, width, height, fov_scale)
+    """N camera rays in component form -> (ro=(x,y,z), rd=(x,y,z)); without
+    ``frame`` the basis and the size are built here."""
+    if frame is None:
+        dev = px.device
+        w = torch.tensor(float(width), dtype=torch.float32, device=dev)
+        h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+        cx, cy = camera_basis(scene, width, height, fov_scale)
+    else:
+        cx, cy, w, h = frame
     dx = tent_jitter(u1)
     dy = tent_jitter(u2)
     fx = ((sx + 0.5 + dx) / 2.0 + px) / w - 0.5

@@ -33,6 +33,10 @@ Finalize reproduces the reference's per-subpixel clamp-then-average and
 gamma pipeline (src/server.rs:360-368) in numpy (``finalize``) and on the
 device (``finalize_device``, ``finalize_device_dyn``).
 
+A renderer keeps the regen engine's captured CUDA graphs
+(``render.wavefront.StepGraphs``), so on a CUDA device its regen bands
+replay their steps; they die with it.
+
 Spans (``utils/timing.py``; live only while a ``torch.profiler`` records):
 ``rt.mega.launch`` around each K1 launch (``pack_params``, the band
 table's pin and the launch), ``rt.render.finalize`` and ``rt.render.pull``
@@ -61,7 +65,7 @@ from raytracer_tpu_torch.ops.megakernel import (
     uniform,
 )
 from raytracer_tpu_torch.render.integrator import radiance
-from raytracer_tpu_torch.render.wavefront import render_band_regen
+from raytracer_tpu_torch.render.wavefront import StepGraphs, render_band_regen
 from raytracer_tpu_torch.render.wavefront_fused import render_band_fused
 from raytracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from raytracer_tpu_torch.utils.timing import count, span
@@ -259,6 +263,9 @@ class Renderer:
         self.engine = select_band_engine(self.scene, self.cfg)
         self.pre = scene_precompute(self.scene) if self.engine != "mega" else None
         self.ray_counts: list[torch.Tensor] = []
+        # The regen engine's captured steps (a CUDA device only); they die
+        # with the renderer.
+        self.graphs = StepGraphs()
 
     # --- scheduling -------------------------------------------------------
 
@@ -347,11 +354,15 @@ class Renderer:
                 self.scene, self.pre, self.cfg, y0, rows, k, n_passes,
                 band_seed(self.cfg.seed, y0, salt),
             )
-        else:
-            band_fn = render_band_fused if self.engine == "fused" else render_band_regen
-            sums, rays = band_fn(
+        elif self.engine == "fused":
+            sums, rays = render_band_fused(
                 self.scene, self.pre, self.cfg, y0, rows, k * n_passes,
                 band_seed(self.cfg.seed, 0, salt),
+            )
+        else:
+            sums, rays = render_band_regen(
+                self.scene, self.pre, self.cfg, y0, rows, k * n_passes,
+                band_seed(self.cfg.seed, 0, salt), graphs=self.graphs,
             )
         if return_rays:
             return sums, rays

@@ -31,6 +31,20 @@ has Phong materials or a mesh light). So a pixel's result depends neither
 on the lane order (the permutation and the compaction change nothing) nor
 on the band that holds it.
 
+On a CUDA device, given a ``StepGraphs`` (every ``Renderer`` keeps one),
+an iteration is a replay of a CUDA graph: the first step at each loop width
+of a band key runs eagerly, the second captures the step into a graph, and
+every later step at that width replays it, so the host makes one call a
+step instead of the step's ~740 kernel launches. The step reads the
+iteration and the dispatch seed from 0-d device tensors that the host
+fills before each replay (the counter hash gives the same bits for them as
+for Python ints), the camera basis is built once a band, and the step
+writes its state back into the width's own buffers. The loop test, the tail
+compaction and the final scatter stay eager. ``step_graphable`` decides
+from the device and the one hook whose wrapper reads the host
+(``RT_SHADOW_COMPACT``); on the CPU, and without a ``StepGraphs``, every
+step is eager.
+
 Spans and counters (``utils/timing.py``; live only while a ``torch.profiler``
 records): each iteration's loop test is ``rt.regen.sync``, and its work
 ``rt.regen.camera`` (regenerate, park), ``rt.regen.sort`` (key, argsort,
@@ -38,10 +52,14 @@ the state's gather), ``rt.regen.trace`` (the main trace),
 ``rt.regen.shadow`` (light sample and shadow trace) and ``rt.regen.shade``
 (emission, material gather, BSDF, roulette, bounce, repack; two spans, on
 either side of the shadow); each tail compaction is ``rt.regen.compact``
-and the slot scatter at the end ``rt.regen.scatter``. Counted:
-``regen.steps``, ``regen.lanes_stepped`` (the loop's width a step),
-``regen.lanes_working`` (the lanes the loop test found working, a step)
-and ``host.syncs`` (one a loop test).
+and the slot scatter at the end ``rt.regen.scatter``. Under a graph those
+phase spans run only while a step runs eagerly or is captured; a replayed
+step is one span, ``rt.regen.replay``. Counted: ``regen.steps``,
+``regen.lanes_stepped`` (the loop's width a step), ``regen.lanes_working``
+(the lanes the loop test found working, a step), ``host.syncs`` (one a
+loop test), ``regen.graph_steps`` (steps run by a replay) and
+``regen.graph_captures``. A replay adds the launches it makes to K2's, K3's
+and K4's ``LAUNCHES``, as the eager wrappers do.
 
 MIS (``cfg.use_mis``) weighs the two strategies that reach the light by the
 balance heuristic: the light sample's direct term is
@@ -87,7 +105,11 @@ set by the server or ``tools/render.py``:
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import os
+import threading
 import warnings
 from typing import NamedTuple
 
@@ -95,12 +117,12 @@ import torch
 
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models import vecmath as vm
-from raytracer_tpu_torch.models.camera import camera_rays3
+from raytracer_tpu_torch.models.camera import camera_frame, camera_rays3
 from raytracer_tpu_torch.models.scene import BRDF_SPECULAR, LIGHT_SPHERE, SceneArrays
-from raytracer_tpu_torch.ops import brdf
+from raytracer_tpu_torch.ops import brdf, bvh_binary, bvh_traverse, keys
 from raytracer_tpu_torch.ops.intersect import ScenePre, trace_soa, trace_t
 from raytracer_tpu_torch.ops.keys import coherence_order, group_order, sort_group
-from raytracer_tpu_torch.ops.megakernel import uniform
+from raytracer_tpu_torch.ops.megakernel import M32, uniform
 from raytracer_tpu_torch.render.integrator import sample_light3
 from raytracer_tpu_torch.utils import env
 from raytracer_tpu_torch.utils.timing import count, span
@@ -190,6 +212,162 @@ def tail_widths(n: int, cfg: RenderConfig, use_bvh: bool) -> list[int]:
     return widths
 
 
+# The environment the step's callees read at each call (the BVH traversal's
+# hooks); a captured step keeps the value it was captured under, so each is
+# part of a graph's key.
+STEP_ENV = ("RT_BVH_KERNEL", "RT_LEAF_TRIS", "RT_SORT_GROUP")
+# The modules whose LAUNCHES a replay adds to: K2, K4, K3.
+_KERNEL_MODULES = (bvh_traverse, bvh_binary, keys)
+# One capture at a time in the process: a capture synchronizes the device
+# and empties the allocator's cache.
+_capture_lock = threading.Lock()
+
+
+def step_graphable(device: torch.device) -> bool:
+    """Whether the regen step on ``device`` runs as a CUDA graph: a CUDA
+    device, and not under ``RT_SHADOW_COMPACT``, whose wrapper reads a live
+    count on the host."""
+    compact = env.choice("RT_SHADOW_COMPACT", "0", ("0", "1", "force"))
+    return torch.device(device).type == "cuda" and compact == "0"
+
+
+def _launches() -> list[int]:
+    return [m.LAUNCHES for m in _KERNEL_MODULES]
+
+
+def _add_launches(added: list[int]) -> None:
+    for m, k in zip(_KERNEL_MODULES, added):
+        if k:
+            with m._launch_lock:
+                m.LAUNCHES += k
+
+
+class _Stage:
+    """One loop width of a band key: the state buffers the step reads and
+    writes back, and the step's graph once captured."""
+
+    def __init__(self, fs: torch.Tensor, ints: torch.Tensor):
+        self.fs, self.ints = fs, ints
+        self.warm = False  # a step has run eagerly at this width
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches = [0] * len(_KERNEL_MODULES)  # the graph's K2, K4, K3 launches
+
+
+class BandGraphs:
+    """The graphs of one band key (``StepGraphs.band``): a ``_Stage`` a loop
+    width, the 0-d tensors the step reads (iteration, dispatch seed) and
+    the ray count it adds to, and the tensors built once a band that the
+    captured step reads (``consts``). ``refs`` keeps the scene and its
+    precompute, whose ids are in the key, alive while the graphs are;
+    ``pools`` is the owner's memory pool a device."""
+
+    def __init__(self, device: torch.device, pools: dict, refs: tuple):
+        i64 = torch.int64
+        self.device, self.pools, self.refs = device, pools, refs
+        self.lock = threading.Lock()
+        self.it = torch.zeros((), dtype=i64, device=device)
+        self.seed = torch.zeros((), dtype=i64, device=device)
+        self.rays = torch.zeros((), dtype=i64, device=device)
+        self.consts: tuple | None = None
+        self.stages: dict[int, _Stage] = {}
+
+    def stage(self, fs: torch.Tensor, ints: torch.Tensor) -> _Stage:
+        """The stage of ``fs``'s width, its buffers holding ``fs`` and ``ints``."""
+        st = self.stages.get(fs.shape[0])
+        if st is None:
+            st = self.stages[fs.shape[0]] = _Stage(torch.empty_like(fs), torch.empty_like(ints))
+        st.fs.copy_(fs)
+        st.ints.copy_(ints)
+        return st
+
+    def step(self, st: _Stage, step, it: int) -> None:
+        """Iteration ``it`` at ``st``'s width: eagerly the first time, then
+        captured, then replayed; the new state lands in ``st``'s buffers."""
+        if st.graph is None and st.warm:
+            self._capture(st, step)
+        if st.graph is None:
+            self.it.fill_(it)
+            fs, ints, rays = step(self.it, st.fs, st.ints, self.rays)
+            st.fs.copy_(fs)
+            st.ints.copy_(ints)
+            self.rays.copy_(rays)
+            st.warm = True
+            return
+        with span("rt.regen.replay"):
+            self.it.fill_(it)
+            st.graph.replay()
+        count("regen.graph_steps")
+        _add_launches(st.launches)
+
+    def _capture(self, st: _Stage, step) -> None:
+        graph = torch.cuda.CUDAGraph()
+        with _capture_lock, torch.cuda.device(self.device):
+            pool = self.pools.get(self.device)
+            if pool is None:
+                pool = self.pools[self.device] = torch.cuda.graph_pool_handle()
+            before = _launches()
+            stream = torch.cuda.Stream(self.device)
+            with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+                fs, ints, rays = step(self.it, st.fs, st.ints, self.rays)
+                st.fs.copy_(fs)
+                st.ints.copy_(ints)
+                self.rays.copy_(rays)
+            # The wrappers counted the captured launches, which the replay
+            # that follows makes; every replay adds them again.
+            st.launches = [b - a for a, b in zip(before, _launches())]
+            _add_launches([-k for k in st.launches])
+        del fs, ints, rays
+        st.graph = graph
+        count("regen.graph_captures")
+
+
+class StepGraphs:
+    """The captured regen steps of one renderer, by band key: everything a
+    capture bakes in (the scene and its precompute, the config, the band's
+    lane count, the samples a dispatch, the hooks, the traversal's
+    environment, the device). At most ``MAX_BANDS`` keys, the least
+    recently used idle one evicted first; one memory pool a device, shared
+    by every graph, since a replay keeps nothing in the pool past its end.
+    Threads may share it: a band holds its key's graphs while it renders,
+    and a second band of the same key meanwhile steps eagerly."""
+
+    MAX_BANDS = 8
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._bands: collections.OrderedDict = collections.OrderedDict()
+        self._pools: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._bands)
+
+    @contextlib.contextmanager
+    def band(self, key: tuple, device: torch.device, refs: tuple):
+        """The ``BandGraphs`` of ``key``, held for the block; None when
+        another band holds them."""
+        with self._lock:
+            bg = self._bands.get(key)
+            if bg is None:
+                bg = self._bands[key] = BandGraphs(device, self._pools, refs)
+            self._bands.move_to_end(key)
+            held = bg.lock.acquire(blocking=False)
+            self._evict()
+        try:
+            yield bg if held else None
+        finally:
+            if held:
+                bg.lock.release()
+
+    def _evict(self) -> None:
+        for key in list(self._bands):
+            if len(self._bands) <= self.MAX_BANDS:
+                return
+            bg = self._bands[key]
+            if bg.lock.acquire(blocking=False):  # idle: no replay of it in flight
+                del self._bands[key]
+                bg.lock.release()
+
+
 def bounce(scene: SceneArrays, cfg: RenderConfig, mat, is_spec, nrm, o3, depth, valid, beta, u):
     """Russian roulette and the BSDF (or mirror) bounce of a vertex, with
     draws 4 (roulette), 5-6 and, for Phong, 7 of ``u(draw)`` -> (wi,
@@ -224,12 +402,28 @@ def render_band_regen(
     num_samples: int,
     seed: int,
     permute: bool = True,
+    graphs: StepGraphs | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render a row band -> (sums f32[rows, W, 4, 3], rays traced i64 scalar),
     on the scene's device. ``permute=False`` keeps the lanes in slot order
     (the traces then sort and unsort around the traversal themselves), as
-    ``RT_PERMUTE_STATE=0`` does. Reads the hooks of ``read_hooks`` once."""
+    ``RT_PERMUTE_STATE=0`` does. With ``graphs``, where ``step_graphable``,
+    the steps replay CUDA graphs kept there (the same kernels in the same
+    order: the same sums); without, every step is eager. Reads the hooks of
+    ``read_hooks`` once."""
     hooks = read_hooks()
+    if graphs is None or not step_graphable(scene.device):
+        return _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks, None)
+    key = (
+        id(scene), id(pre), cfg, rows * cfg.width * 4, num_samples, permute, hooks,
+        tuple(os.environ.get(name) for name in STEP_ENV), scene.device,
+    )
+    with graphs.band(key, scene.device, (scene, pre)) as bg:
+        return _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks, bg)
+
+
+def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: Hooks, bg: BandGraphs | None):
+    """``render_band_regen``'s band, its steps through ``bg`` when given."""
     eps = cfg.eps
     margin = eps.visibility_margin
     mis = cfg.use_mis
@@ -237,7 +431,6 @@ def render_band_regen(
     n = rows * w * 4
     dev = scene.device
     f32, i32 = torch.float32, torch.int32
-    light_e = scene.obj_emitted[scene.light_idx]
     hard_cap = num_samples * (cfg.max_depth + 2) + 64
     bvh = scene.use_bvh
     permute = permute and hooks.permute and bvh
@@ -251,14 +444,28 @@ def render_band_regen(
     if ablate:
         warnings.warn(f"RT_ABLATE={ablate}: a timing probe, the frame is not an image", RuntimeWarning,
                       stacklevel=2)
-    # The reversed segment leaves the light sphere's surface, which cannot
-    # occlude it, but where f32 root noise could fake a hit just above eps:
-    # its trace sees every sphere but the light.
-    scene_shadow = (
-        dataclasses.replace(scene, sph_valid=scene.sph_valid & (scene.sph_obj != scene.light_idx))
-        if reverse else scene
-    )
-    seed_u = seed & 0xFFFFFFFF
+    # The tensors the step reads that are built once a band; a captured
+    # step reads the ones of the band that captured it, which ``bg`` keeps.
+    consts = bg.consts if bg is not None else None
+    if consts is None:
+        # The reversed segment leaves the light sphere's surface, which cannot
+        # occlude it, but where f32 root noise could fake a hit just above eps:
+        # its trace sees every sphere but the light.
+        scene_shadow = (
+            dataclasses.replace(scene, sph_valid=scene.sph_valid & (scene.sph_obj != scene.light_idx))
+            if reverse else scene
+        )
+        consts = (
+            scene.obj_emitted[scene.light_idx], scene_shadow,
+            camera_frame(scene, w, cfg.height, cfg.fov_scale),
+        )
+        if bg is not None:
+            bg.consts = consts
+    light_e, scene_shadow, cam = consts
+    seed_u = seed & M32
+    if bg is not None:
+        bg.seed.fill_(seed_u)
+        seed_u = bg.seed
     base = y0 * w * 4
     c_sh = 16 if mis else 15  # first column of the pending query (deferred)
 
@@ -268,7 +475,12 @@ def render_band_regen(
         fs[:, c_sh + 3:c_sh + 6] = torch.tensor(PARK_RD, dtype=f32, device=dev)
     ints = torch.zeros((n, 4), dtype=i32, device=dev)
     ints[:, SLOT] = torch.arange(base, base + n, dtype=i32, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if bg is None:
+        rays = torch.zeros((), dtype=torch.int64, device=dev)
+    else:
+        st = bg.stage(fs, ints)
+        fs, ints, rays = st.fs, st.ints, bg.rays
+        rays.zero_()
 
     def pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow: bool = False) -> torch.Tensor:
         """The state as rows: the loop's carry, or (``narrow``) the
@@ -300,7 +512,9 @@ def render_band_regen(
             sh = (vm.as3(fs[:, c:c + 3]), vm.as3(fs[:, c + 3:c + 6]), fs[:, c + 6], fs[:, c + 7:c + 10])
         return vm.as3(fs[:, 0:3]), vm.as3(fs[:, 3:6]), beta, emis, acc, pdf_prev, sh
 
-    def step(it: int, fs: torch.Tensor, ints: torch.Tensor, rays: torch.Tensor):
+    def step(it, fs: torch.Tensor, ints: torch.Tensor, rays: torch.Tensor):
+        """One iteration -> (fs, ints, rays); ``it`` an int or a 0-d i64
+        tensor on the device."""
         with span("rt.regen.camera"):
             active = ints[:, ACTIVE] != 0
             j = ints[:, J]
@@ -321,7 +535,7 @@ def render_band_regen(
             cro, crd = camera_rays3(
                 scene, w, cfg.height, cfg.fov_scale,
                 (pix % w).to(f32), (pix // w).to(f32), (sub % 2).to(f32), (sub // 2).to(f32),
-                u(0), u(1),
+                u(0), u(1), cam,
             )
             g3 = got[:, None]
             ro = vm.where3(got, cro, ro)
@@ -488,7 +702,10 @@ def render_band_regen(
             count("regen.steps")
             count("regen.lanes_stepped", ints.shape[0])
             count("regen.lanes_working", working)
-            fs, ints, rays = step(it, fs, ints, rays)
+            if bg is None:
+                fs, ints, rays = step(it, fs, ints, rays)
+            else:
+                bg.step(bg.stages[fs.shape[0]], step, it)
             it += 1
         return fs, ints, rays
 
@@ -507,6 +724,9 @@ def render_band_regen(
             tail_slots.append(ints[w2:, SLOT])
             tail_accs.append(fs[w2:, ACC])
             fs, ints = fs[:w2], ints[:w2]
+            if bg is not None:
+                st = bg.stage(fs, ints)
+                fs, ints = st.fs, st.ints
     fs, ints, rays = run(fs, ints, rays, 0)
 
     with span("rt.regen.scatter"):
@@ -514,4 +734,5 @@ def render_band_regen(
         acc = torch.cat([fs[:, ACC]] + tail_accs)
         out = torch.empty_like(acc)
         out[slot] = acc
-    return out.view(rows, w, 4, 3), rays
+    # Nothing that leaves the band is a graph's buffer.
+    return out.view(rows, w, 4, 3), rays if bg is None else rays.clone()

@@ -332,3 +332,103 @@ def test_sharded_over_every_visible_card(cuda):
     asked = make_renderer(unicorn, ucfg, devices[0], sharded=True)
     assert type(asked) is ShardedRenderer and asked.n_dev == n
     assert (asked.render_image(8) == plain).all()
+
+
+def _regen_case(name, cuda, monkeypatch):
+    """(scene, precompute, config) of a graphed-band case."""
+    from raytracer_tpu_torch.ops.intersect import scene_precompute
+
+    if name == "unicorn_deferred":
+        monkeypatch.setenv("RT_DEFER_SHADOW", "1")
+    scene_file, cfg = {
+        # 12,288 lanes: every tail width (6,144, 3,072, 2,048).
+        "unicorn": ("flying_unicorn", RenderConfig(width=64, height=48)),
+        "unicorn_deferred": ("flying_unicorn", RenderConfig(width=64, height=48)),
+        "crewmate_phong": ("crewmate_phong", RenderConfig(width=64, height=48)),
+        "cornell_mis": ("cornell_box", RenderConfig(width=32, height=24, engine="regen", use_mis=True)),
+    }[name]
+    scene = load_scene(os.path.join(SCENES, f"{scene_file}.toml"), device=cuda)
+    return scene, scene_precompute(scene), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unicorn", "crewmate_phong", "cornell_mis", "unicorn_deferred"])
+def test_graphed_regen_band_equals_the_eager_band(cuda, name, monkeypatch):
+    """The same kernels in the same order: every element of the sums and the
+    ray count, on the band that captures and on one that replays."""
+    from raytracer_tpu_torch.render.wavefront import StepGraphs, render_band_regen, tail_widths
+
+    scene, pre, cfg = _regen_case(name, cuda, monkeypatch)
+    graphs = StepGraphs()
+    for seed in (5, 6, 7):
+        want, want_rays = render_band_regen(scene, pre, cfg, 0, cfg.height, 2, seed)
+        got, got_rays = render_band_regen(scene, pre, cfg, 0, cfg.height, 2, seed, graphs=graphs)
+        assert torch.equal(got, want), seed
+        assert int(got_rays) == int(want_rays), seed
+    (bg,) = graphs._bands.values()
+    n = cfg.width * cfg.height * 4
+    assert sorted(bg.stages) == sorted([n] + tail_widths(n, cfg, scene.use_bvh))
+    assert all(st.graph is not None for st in bg.stages.values())
+
+
+@pytest.mark.cuda
+def test_a_second_render_replays_with_no_capture(cuda):
+    """A renderer captures its widths in the first frame; later frames replay
+    every step, and K2's and K3's launch counters rise with each replayed
+    launch, as much as an eager frame's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch.ops import bvh_traverse, keys
+    from raytracer_tpu_torch.utils.timing import counters, reset_counters
+
+    scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    cfg = RenderConfig(width=64, height=48)
+    r = Renderer(scene, cfg)
+    eager = Renderer(scene, cfg)
+    eager.graphs = None
+
+    def frame(renderer):
+        k3, k2 = keys.LAUNCHES, bvh_traverse.LAUNCHES
+        reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            img = renderer.render_image(8)
+        got = counters()
+        reset_counters()
+        return img, got, (keys.LAUNCHES - k3, bvh_traverse.LAUNCHES - k2)
+
+    want, _, eager_launches = frame(eager)
+    first, c1, l1 = frame(r)
+    assert c1["regen.graph_captures"] == len(r.graphs._bands[next(iter(r.graphs._bands))].stages) == 4
+    n_bands = len(r.graphs)
+    for _ in range(2):
+        img, c, launches = frame(r)
+        assert (img == want).all() and len(r.graphs) == n_bands
+        assert "regen.graph_captures" not in c
+        assert c["regen.graph_steps"] == c["regen.steps"] > 0
+        assert launches == l1 == eager_launches and min(launches) > 0
+    assert (first == want).all() and r.rays_traced() == 3 * eager.rays_traced()
+
+
+@pytest.mark.cuda
+def test_graphed_bands_under_threads(cuda):
+    """Threads that share a renderer, as the server's executor threads do:
+    each band equals the eager band, whether it held the key's graphs or
+    stepped eagerly while another band held them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    scene = load_scene(os.path.join(SCENES, "flying_unicorn.toml"), device=cuda)
+    cfg = RenderConfig(width=64, height=48)
+    r = Renderer(scene, cfg)
+    eager = Renderer(scene, cfg)
+    eager.graphs = None
+    rows = 16
+    want = {y0: eager.render_band_sums(y0, rows, 1, 1, salt=1, return_rays=True) for y0 in (0, 16, 32)}
+
+    def band(y0):
+        sums, rays = r.render_band_sums(y0, rows, 1, 1, salt=1, return_rays=True)
+        torch.cuda.current_stream().synchronize()
+        return y0, sums, int(rays)
+
+    with ThreadPoolExecutor(4) as pool:
+        for y0, sums, rays in pool.map(band, [0, 16, 32] * 4):
+            assert torch.equal(sums, want[y0][0]) and rays == int(want[y0][1]), y0
