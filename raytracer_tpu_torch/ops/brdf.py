@@ -74,7 +74,15 @@ def eval_nonspecular3(mat: Mat, n, o, i, has_phong: bool = False) -> torch.Tenso
     return torch.where((mat.brdf_type == BRDF_SPECULAR)[:, None], 0.0, f)
 
 
-def sample3(mat: Mat, n, o, u1, u2, u3, fix_phong_frame: bool = True, has_phong: bool = False):
+def phong_picks(mat: Mat, u1: torch.Tensor):
+    """The Phong lanes and the lobe ``u1`` picks on them -> (is_phong,
+    pick_d: the cosine lobe, u1 < kd; pick_s: the power-cosine lobe,
+    kd <= u1 < kd + ks); where neither holds the sample picks nothing."""
+    pick_d = u1 < mat.k_d
+    return mat.brdf_type == BRDF_PHONG, pick_d, ~pick_d & (u1 < mat.k_d + mat.k_s)
+
+
+def sample3(mat: Mat, n, o, u1, u2, u3, fix_phong_frame: bool = True, has_phong: bool = False, picks=None):
     """BRDF sample -> (i=(x,y,z) of [N], pdf[N]).
 
     Diffuse lanes: the cosine-weighted hemisphere from (u1, u2) (the
@@ -82,7 +90,8 @@ def sample3(mat: Mat, n, o, u1, u2, u3, fix_phong_frame: bool = True, has_phong:
     pdf 1. Phong lanes: u1 picks the cosine lobe (u1 < kd), the
     power-cosine lobe (u1 < kd + ks) or nothing; (u2, u3) sample the lobe.
     A dead Phong sample returns i = 0 and pdf 1, so the integrator's
-    weight f*cos/pdf is 0 and the path ends.
+    weight f*cos/pdf is 0 and the path ends. ``picks``: ``phong_picks(mat,
+    u1)`` where the caller has it.
     """
     un, vn, wn = vm.local_frame3(n)
     z = torch.sqrt(u1)
@@ -95,8 +104,7 @@ def sample3(mat: Mat, n, o, u1, u2, u3, fix_phong_frame: bool = True, has_phong:
     if not has_phong:
         return vm.where3(is_spec, i_spec, i_diff), torch.where(is_spec, 1.0, pdf_diff)
 
-    pick_d = u1 < mat.k_d
-    pick_s = ~pick_d & (u1 < mat.k_d + mat.k_s)
+    is_phong, pick_d, pick_s = picks if picks is not None else phong_picks(mat, u1)
     rp = torch.sqrt(torch.clamp_min(1.0 - u2, 0.0))
     phip = TWO_PI * u3
     cos_p, sin_p = torch.cos(phip), torch.sin(phip)
@@ -118,7 +126,6 @@ def sample3(mat: Mat, n, o, u1, u2, u3, fix_phong_frame: bool = True, has_phong:
         torch.clamp_min(vm.dot3(n, ph_d), 0.0) * INV_PI,
         torch.where(pick_s, ph_s_pdf, 1.0),
     )
-    is_phong = mat.brdf_type == BRDF_PHONG
     i = vm.where3(is_spec, i_spec, vm.where3(is_phong, i_phong, i_diff))
     pdf = torch.where(is_spec, 1.0, torch.where(is_phong, pdf_phong, pdf_diff))
     return i, pdf

@@ -59,7 +59,17 @@ step is one span, ``rt.regen.replay``. Counted: ``regen.steps``,
 (the lanes the loop test found working, a step), ``host.syncs`` (one a
 loop test), ``regen.graph_steps`` (steps run by a replay) and
 ``regen.graph_captures``. A replay adds the launches it makes to K2's, K3's
-and K4's ``LAUNCHES``, as the eager wrappers do.
+and K4's ``LAUNCHES``, as the eager wrappers do. In a scene with Phong
+materials the bounce also counts its Phong arms: ``regen.phong_hits``
+(working lanes whose main hit is a Phong surface), ``regen.phong_lobe``
+(of those, the lanes whose draw 5 picked the power-cosine lobe) and
+``regen.phong_dead`` (those whose draw 5 picked nothing, which ends the
+path). The step adds them on the device, lane slot by slot, into an i32
+buffer the band owns (three rows of the band's width: an add into it is
+one small kernel, where a sum each step would cast and reduce), so a
+replayed step counts as an eager one does; the band sums the buffer once,
+after its loop, only while a profiler records (one more ``host.syncs``). The arms have no span of their own: they run inside
+``rt.regen.shade``, and a replayed step is one ``rt.regen.replay``.
 
 MIS (``cfg.use_mis``) weighs the two strategies that reach the light by the
 balance heuristic: the light sample's direct term is
@@ -125,7 +135,7 @@ from raytracer_tpu_torch.ops.keys import coherence_order, group_order, sort_grou
 from raytracer_tpu_torch.ops.megakernel import M32, uniform
 from raytracer_tpu_torch.render.integrator import sample_light3
 from raytracer_tpu_torch.utils import env
-from raytracer_tpu_torch.utils.timing import count, span
+from raytracer_tpu_torch.utils.timing import count, recording, span
 
 # Parking spot for lanes with no ray this iteration: far outside any
 # reference-scale scene, pointing away, so every test misses at once and
@@ -255,11 +265,11 @@ class _Stage:
 
 class BandGraphs:
     """The graphs of one band key (``StepGraphs.band``): a ``_Stage`` a loop
-    width, the 0-d tensors the step reads (iteration, dispatch seed) and
-    the ray count it adds to, and the tensors built once a band that the
-    captured step reads (``consts``). ``refs`` keeps the scene and its
-    precompute, whose ids are in the key, alive while the graphs are;
-    ``pools`` is the owner's memory pool a device."""
+    width, the 0-d tensors the step reads (iteration, dispatch seed), the
+    ray count and the Phong tally it adds to, and the tensors built once a
+    band that the captured step reads (``consts``). ``refs`` keeps the
+    scene and its precompute, whose ids are in the key, alive while the
+    graphs are; ``pools`` is the owner's memory pool a device."""
 
     def __init__(self, device: torch.device, pools: dict, refs: tuple):
         i64 = torch.int64
@@ -268,6 +278,7 @@ class BandGraphs:
         self.it = torch.zeros((), dtype=i64, device=device)
         self.seed = torch.zeros((), dtype=i64, device=device)
         self.rays = torch.zeros((), dtype=i64, device=device)
+        self.phong: torch.Tensor | None = None
         self.consts: tuple | None = None
         self.stages: dict[int, _Stage] = {}
 
@@ -368,18 +379,29 @@ class StepGraphs:
                 bg.lock.release()
 
 
-def bounce(scene: SceneArrays, cfg: RenderConfig, mat, is_spec, nrm, o3, depth, valid, beta, u):
+def bounce(scene: SceneArrays, cfg: RenderConfig, mat, is_spec, nrm, o3, depth, valid, beta, u, tally=None):
     """Russian roulette and the BSDF (or mirror) bounce of a vertex, with
     draws 4 (roulette), 5-6 and, for Phong, 7 of ``u(draw)`` -> (wi,
     pdf_b, p: the survival probability, beta_next, live: the lanes whose
-    path goes on)."""
+    path goes on). With a Phong scene and ``tally`` (i32[3, >= lanes] on the
+    device), adds to its slots, lane by lane, the valid lanes on a Phong
+    surface, those of them whose draw 5 picked the cosine lobe and those
+    whose draw 5 picked the power-cosine lobe (the rest picked nothing)."""
     p = torch.where(depth <= cfg.rr_start_depth, 1.0, cfg.rr_survival)
     cont = valid & (u(4) < p) & (depth < cfg.max_depth)
     ub = u(5)
+    picks = brdf.phong_picks(mat, ub) if scene.has_phong else None
     wi, pdf_b = brdf.sample3(
         mat, nrm, o3, ub, u(6), u(7) if scene.has_phong else ub,
-        cfg.fix_phong_frame, scene.has_phong,
+        cfg.fix_phong_frame, scene.has_phong, picks,
     )
+    if tally is not None and picks is not None:
+        is_phong, pick_d, pick_s = picks
+        on = valid & is_phong
+        m = on.shape[0]
+        tally[0, :m] += on
+        tally[1, :m].addcmul_(on, pick_d)
+        tally[2, :m].addcmul_(on, pick_s)
     f_c = brdf.eval_nonspecular3(mat, nrm, o3, wi, scene.has_phong)
     cos_c = vm.dot3(nrm, wi)
     w_nonspec = torch.where(
@@ -481,6 +503,15 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
         st = bg.stage(fs, ints)
         fs, ints, rays = st.fs, st.ints, bg.rays
         rays.zero_()
+    # The Phong arms' counts (bounce), added slot by slot over the band's steps.
+    tally = None
+    if scene.has_phong:
+        if bg is None or bg.phong is None:  # ``n`` is in the band key
+            tally = torch.zeros((3, n), dtype=i32, device=dev)
+            if bg is not None:
+                bg.phong = tally
+        else:
+            tally = bg.phong.zero_()
 
     def pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow: bool = False) -> torch.Tensor:
         """The state as rows: the loop's carry, or (``narrow``) the
@@ -666,7 +697,7 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
                 acc = acc + torch.where(nee[:, None], beta * direct, 0.0)
 
             # 5) Russian roulette and the bounce
-            wi, pdf_b, p, beta_next, live = bounce(scene, cfg, mat, is_spec, nrm, o3, depth, valid, beta, u)
+            wi, pdf_b, p, beta_next, live = bounce(scene, cfg, mat, is_spec, nrm, o3, depth, valid, beta, u, tally)
             # A mirror bounce collects the next hit's emission at beta/p. Without
             # MIS a non-specular one collects none (NEE counted the light); with
             # MIS it collects at beta_next times the balance weight.
@@ -728,6 +759,13 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
                 st = bg.stage(fs, ints)
                 fs, ints = st.fs, st.ints
     fs, ints, rays = run(fs, ints, rays, 0)
+    if tally is not None and recording():
+        hits, diffuse, lobe = tally.sum(dim=1).tolist()
+        dead = hits - diffuse - lobe
+        count("host.syncs")
+        count("regen.phong_hits", hits)
+        count("regen.phong_lobe", lobe)
+        count("regen.phong_dead", dead)
 
     with span("rt.regen.scatter"):
         slot = torch.cat([ints[:, SLOT]] + tail_slots).to(torch.int64) - base

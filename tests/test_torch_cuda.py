@@ -432,3 +432,74 @@ def test_graphed_bands_under_threads(cuda):
     with ThreadPoolExecutor(4) as pool:
         for y0, sums, rays in pool.map(band, [0, 16, 32] * 4):
             assert torch.equal(sums, want[y0][0]) and rays == int(want[y0][1]), y0
+
+
+def _counted(fn):
+    """``fn()`` under a profiler -> (its result, the program's counters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch.utils.timing import counters, reset_counters
+
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    got = counters()
+    reset_counters()
+    return out, got
+
+
+@pytest.mark.cuda
+def test_graphed_crewmate_band_counts_its_phong_arms_as_the_eager_band(cuda, monkeypatch):
+    """The Phong counters, summed on the device inside the step, read the
+    same on the band that captures, on those that replay and eagerly."""
+    from raytracer_tpu_torch.render.wavefront import StepGraphs, render_band_regen
+
+    phong = ("regen.phong_hits", "regen.phong_lobe", "regen.phong_dead")
+    scene, pre, cfg = _regen_case("crewmate_phong", cuda, monkeypatch)
+    graphs = StepGraphs()
+    for seed in (5, 6, 7):
+        (want, _), c_want = _counted(lambda: render_band_regen(scene, pre, cfg, 0, cfg.height, 2, seed))
+        (got, _), c_got = _counted(lambda: render_band_regen(scene, pre, cfg, 0, cfg.height, 2, seed,
+                                                             graphs=graphs))
+        assert torch.equal(got, want), seed
+        assert [c_got[k] for k in phong] == [c_want[k] for k in phong], seed
+        assert all(c_got[k] > 0 for k in phong) and c_got["regen.graph_steps"] > 0
+    assert c_got["regen.graph_steps"] == c_got["regen.steps"]
+
+
+def _band_ops(scene, pre, cfg):
+    """ATen ops an eager band of two samples dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from raytracer_tpu_torch.render.wavefront import render_band_regen
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        render_band_regen(scene, pre, cfg, 0, cfg.height, 2, 5)
+    return c.ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unicorn", "crewmate_phong"])
+def test_the_phong_counters_add_ops_to_a_phong_step_alone(cuda, monkeypatch, name):
+    """The band with its Phong tally against the same band with the tally
+    dropped, counted in the dispatcher: the tally adds ops to a Phong
+    scene's steps and none to the unicorn's, so the unicorn's captured step
+    is the parent's. (What the profiler counts for one graph replay varies
+    with the process's history: 745 and 599 kernels for the same unicorn
+    step in one process.)"""
+    from raytracer_tpu_torch.render import wavefront
+
+    scene, pre, cfg = _regen_case(name, cuda, monkeypatch)
+    _band_ops(scene, pre, cfg)  # the first band builds what the later ones reuse (7 ops more)
+    counted = _band_ops(scene, pre, cfg)
+    bounce = wavefront.bounce
+    monkeypatch.setattr(wavefront, "bounce", lambda *a: bounce(*a[:10]))  # the tally is the 11th
+    plain = _band_ops(scene, pre, cfg)
+    assert plain > 0 and (counted > plain if name == "crewmate_phong" else counted == plain), (counted, plain)

@@ -11,8 +11,9 @@ graphed bands against the eager ones there). Here:
   and a CPU renderer keeps no graph;
 - the step makes no host read and no host-to-device copy, so it can be
   captured: no op of its phases reads a value on the host or builds a
-  tensor from host data (the BVH scene with K2 and K3 stood in for by
-  device-only functions, since their CPU twins walk on the host);
+  tensor from host data (the BVH scenes with K2 and K3 stood in for by
+  device-only functions, since their CPU twins walk on the host; the
+  crewmate's step with its Phong tally);
 - the graph path's plumbing (the width's buffers, the 0-d iteration and
   seed, the write-back, the tail stages, a second band replaying what the
   first captured, the counters, the ray count that leaves the band) gives
@@ -60,6 +61,11 @@ def unicorn():
 @pytest.fixture(scope="module")
 def cornell():
     return _scene("cornell_box")
+
+
+@pytest.fixture(scope="module")
+def crewmate():
+    return _scene("crewmate_phong")
 
 
 def _zero_d(value: int) -> torch.Tensor:
@@ -162,10 +168,10 @@ def _device_only_kernels(monkeypatch):
     monkeypatch.setattr(keys, "coherence_key", key)
 
 
-@pytest.mark.parametrize("case", ["unicorn", "unicorn_deferred", "cornell_mis"])
-def test_the_step_reads_nothing_on_the_host(case, unicorn, cornell, monkeypatch):
-    if case.startswith("unicorn"):
-        (scene, pre), cfg = unicorn, RenderConfig(width=32, height=24)
+@pytest.mark.parametrize("case", ["unicorn", "unicorn_deferred", "cornell_mis", "crewmate"])
+def test_the_step_reads_nothing_on_the_host(case, unicorn, cornell, crewmate, monkeypatch):
+    if case != "cornell_mis":
+        (scene, pre), cfg = crewmate if case == "crewmate" else unicorn, RenderConfig(width=32, height=24)
         _device_only_kernels(monkeypatch)
     else:
         (scene, pre), cfg = cornell, RenderConfig(width=16, height=8, engine="regen", use_mis=True)
