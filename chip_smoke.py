@@ -69,8 +69,9 @@ Then the rest of what the port does, each at the reference's 600x450:
   default's (medians of 3 runs, every variant and the default in turn, each
   the second frame of its renderer, whose first captured its CUDA graphs),
   its K2/K3/K4 launches and its traversal and K3 kernel time: the frames of
-  ``RT_PERMUTE_STATE=0``, ``RT_SORT_GROUP=8`` and ``RT_SHADOW_COMPACT=1``
-  equal to the default on every pixel (and on crewmate_phong under K4),
+  ``RT_PERMUTE_STATE=1`` (the lane permutation, off by default), of
+  ``RT_SORT_GROUP=8`` with it and of ``RT_SHADOW_COMPACT=1`` equal to the
+  default on every pixel (and on crewmate_phong under K4),
   ``RT_STATE_BF16=1`` and ``RT_SHADOW_REVERSE=1`` statistically equal,
   ``RT_DEFER_SHADOW=1`` equal on >= 99% of pixels; the glue's split by the
   probes ``RT_ABLATE=shadow`` and ``RT_ABLATE=rng``; ``RT_SHADOW_COMPACT``
@@ -1312,13 +1313,14 @@ def main() -> int:
     # medians of 3, launches and images the last round's (each render is
     # deterministic). Then each variant's traversal and K3 kernel time.
     variants = (
-        ("RT_PERMUTE_STATE=0", "equal"), ("RT_SORT_GROUP=8", "equal"), ("RT_SHADOW_COMPACT=1", "equal"),
+        ("RT_PERMUTE_STATE=1", "equal"), ("RT_PERMUTE_STATE=1 RT_SORT_GROUP=8", "equal"),
+        ("RT_SHADOW_COMPACT=1", "equal"),
         ("RT_STATE_BF16=1", "rounded"), ("RT_SHADOW_REVERSE=1", "rounded"), ("RT_DEFER_SHADOW=1", "regrouped"),
         ("RT_ABLATE=shadow", "probe"), ("RT_ABLATE=rng", "probe"),
     )
 
     def env_of(label: str) -> dict:
-        return dict([label.split("=")]) if label != "default" else {}
+        return dict(kv.split("=") for kv in label.split()) if label != "default" else {}
 
     def variant_frame(scene):
         r = Renderer(scene, RenderConfig(), device="cuda")

@@ -331,8 +331,9 @@ def bvh_intersect(
     ``ro``/``rd`` are [N,3] tensors or component tuples. ``t_init`` bounds
     the search (hits at or beyond it may be dropped; default INF);
     ``any_hit`` lets a ray stop at its first hit below ``t_init`` or at once
-    when ``resolved0``. ``presorted`` callers (the regen engine permutes
-    its lane state by the same key) skip the sort and the unsort.
+    when ``resolved0``. ``presorted`` callers (the regen engine under
+    ``RT_PERMUTE_STATE=1``, which permutes its lane state by the same key)
+    skip the sort and the unsort.
     """
     ro3, rd3 = as3(ro), as3(rd)
     dev = ro3[0].device

@@ -10,10 +10,14 @@ straight into the lane's ``acc``. Each iteration:
 
 1. regenerate idle lanes (camera ray from the lane's slot), park lanes with
    no work left at ``PARK_RO``/``PARK_RD`` (their rays miss at the root);
-2. BVH scenes: permute the whole lane state by the coherence key (K3), so
-   the main trace runs ``presorted`` through the BVH traversal (K2, or K4
-   under ``RT_BVH_KERNEL=binary``);
-3. main trace, arrival emission, NEE with a shadow ray bounded at
+2. main trace through the BVH traversal (K2, or K4 under
+   ``RT_BVH_KERNEL=binary``) on BVH scenes: the traversal's wrapper sorts
+   the rays by the coherence key (K3), walks them and unsorts the hits
+   (``ops/bvh_traverse.py::bvh_intersect``). Under ``RT_PERMUTE_STATE=1``
+   (and the hooks that turn it on: ``RT_STATE_BF16``, ``RT_SHADOW_REVERSE``,
+   ``RT_DEFER_SHADOW``) the whole lane state is permuted by that key first
+   instead, and the main trace runs ``presorted``;
+3. arrival emission, NEE with a shadow ray bounded at
    ``dist - visibility_margin`` that sorts by its own key, with the
    sphere-light back-face cull on BVH scenes;
 4. Russian roulette and a cosine or mirror bounce.
@@ -21,6 +25,13 @@ straight into the lane's ``acc``. Each iteration:
 BVH scenes also compact the tail: once at most half the loop's lanes hold
 work, the working lanes move (stable) to the front of a half-width loop,
 up to ``cfg.tail_compact_stages`` times.
+
+The lane state is component-major: f32[C, lanes] (ro, rd, beta, emis, acc;
+C = 15, 16 under MIS, 10 more under ``RT_DEFER_SHADOW``) and i32[4, lanes]
+(active, j, depth, slot), one contiguous vector a component. A step reads
+its components as views of those buffers and writes its carry back into
+them; the slot row stays as it is, since only the tail compaction (and the
+opt-in permutation) moves lanes, gathering along the lane axis.
 
 Random numbers come from the counter hash of ``ops/megakernel.py``, keyed
 on the lane's slot in the frame (``y0*W*4 + pixel*4 + sub``), the
@@ -47,20 +58,24 @@ step is eager.
 
 Spans and counters (``utils/timing.py``; live only while a ``torch.profiler``
 records): each iteration's loop test is ``rt.regen.sync``, and its work
-``rt.regen.camera`` (regenerate, park), ``rt.regen.sort`` (key, argsort,
-the state's gather), ``rt.regen.trace`` (the main trace),
-``rt.regen.shadow`` (light sample and shadow trace) and ``rt.regen.shade``
-(emission, material gather, BSDF, roulette, bounce, repack; two spans, on
-either side of the shadow); each tail compaction is ``rt.regen.compact``
-and the slot scatter at the end ``rt.regen.scatter``. Under a graph those
-phase spans run only while a step runs eagerly or is captured; a replayed
-step is one span, ``rt.regen.replay``. Counted: ``regen.steps``,
-``regen.lanes_stepped`` (the loop's width a step), ``regen.lanes_working``
-(the lanes the loop test found working, a step), ``host.syncs`` (one a
-loop test), ``regen.graph_steps`` (steps run by a replay) and
-``regen.graph_captures``. A replay adds the launches it makes to K2's, K3's
-and K4's ``LAUNCHES``, as the eager wrappers do. In a scene with Phong
-materials the bounce also counts its Phong arms: ``regen.phong_hits``
+``rt.regen.camera`` (regenerate, park), ``rt.regen.sort`` (under the
+permutation: key, argsort, the state's gather), ``rt.regen.trace`` (the
+main trace), ``rt.regen.shadow`` (light sample and shadow trace) and
+``rt.regen.shade`` (emission, material gather, BSDF, roulette, bounce,
+write-back; two spans, on either side of the shadow); each tail compaction
+is ``rt.regen.compact`` and the slot scatter at the end
+``rt.regen.scatter``. Under a graph those phase spans run only while a step
+runs eagerly or is captured; a replayed step is one span,
+``rt.regen.replay``. Counted: ``regen.steps``, ``regen.lanes_stepped``
+(the loop's width a step), ``regen.lanes_working`` (the lanes the loop test
+found working, a step), ``host.syncs`` (one a loop test),
+``regen.graph_steps`` (steps run by a replay), ``regen.graph_captures`` and
+``regen.rows_gathered`` (the lanes whose state a gather moves: the loop's
+width for each permuted step, the width each tail compaction compacts;
+counted on the host, where both are known). A replay adds the launches it
+makes to K2's, K3's and K4's ``LAUNCHES``, as the eager wrappers do. In a
+scene with Phong materials the bounce also counts its Phong arms:
+``regen.phong_hits``
 (working lanes whose main hit is a Phong surface), ``regen.phong_lobe``
 (of those, the lanes whose draw 5 picked the power-cosine lobe) and
 ``regen.phong_dead`` (those whose draw 5 picked nothing, which ends the
@@ -82,11 +97,16 @@ The JAX engine's measurement hooks, each read at each call with JAX's name
 and meaning (``utils/env.py``; a value outside a hook's set raises), none
 set by the server or ``tools/render.py``:
 
-- ``RT_PERMUTE_STATE=0`` (``wavefront.py:65``): no lane permutation; the
-  traces sort and unsort their own rays (as ``permute=False``);
+- ``RT_PERMUTE_STATE=1`` (``wavefront.py:65``; BVH scenes): permute the
+  whole lane state by the coherence key each step, so the main trace runs
+  ``presorted`` (as ``permute=True``). **The port's default is 0** (JAX's
+  is 1): the traces sort and unsort their own rays by the same key, which
+  keeps K2's rays coherent for less device time than gathering every
+  component of every lane each step;
 - ``RT_SORT_GROUP=G`` (``wavefront.py:84``): the permutation moves groups
   of G consecutive lanes, ordered by their least key, where G divides the
-  loop's width (``ops/keys.py::group_order``);
+  loop's width (``ops/keys.py::group_order``); without the permutation the
+  traversal's own sort does (``ops/bvh_traverse.py``);
 - ``RT_ABLATE`` = ``shadow`` / ``rng`` (``wavefront.py:403-407, :440, :531``),
   timing probes whose frames are not images: ``shadow`` takes the shadow
   lanes as visible and traces no shadow ray; ``rng`` gives every shading
@@ -94,21 +114,24 @@ set by the server or ``tools/render.py``:
   of JAX's ``linspace(0.1, 0.9, n_draws)`` table at JAX's position
   (``ablate_draws``), camera jitter stays random. Each warns;
 - ``RT_STATE_BF16=1`` (``wavefront.py:224-245``): beta and emis each ride
-  one column of two bf16 halves, rounded to nearest (``pack2``), through
-  the permutation's and the tail compaction's gathers: 15 gathered float
-  columns become 12. **The port's default is f32 state** (JAX's is 1): the
-  bf16 pair was a TPU gather saving, and the f32 frame is the one held
-  against the references;
+  one component of two bf16 halves, rounded to nearest (``pack2``),
+  through the permutation's and the tail compaction's gathers: 15
+  gathered float components become 12. It turns the permutation on
+  (unless ``permute=False``), so the state rounds at every step, as JAX's
+  does. **The port's default is f32 state** (JAX's is 1): the bf16 pair
+  was a TPU gather saving, and the f32 frame is the one held against the
+  references;
 - ``RT_SHADOW_REVERSE=1`` (``wavefront.py:106``; BVH scenes with a sphere
   light): the shadow segment runs from the light sample to the surface,
   ``presorted`` in the main ray's order (no K3, sort or unsort for it),
   against the scene with the light sphere masked out of the sphere set of
-  that trace only;
-- ``RT_DEFER_SHADOW=1`` (``wavefront.py:136``; BVH scenes with the
-  permutation, not under ``RT_SHADOW_REVERSE``): a shadow query and its
-  unweighted direct term ride the lane state (``s_ro``, ``s_rd``,
-  ``s_cap``, ``pend``: 10 more columns) into the next iteration, resolve
-  ``presorted`` beside its main trace and bank ``vis * pend``; a lane
+  that trace only; it turns the permutation on (unless ``permute=False``);
+- ``RT_DEFER_SHADOW=1`` (``wavefront.py:136``; BVH scenes, not under
+  ``RT_SHADOW_REVERSE`` nor ``permute=False``): turns the permutation on
+  for its band, since a shadow query and its unweighted direct term ride
+  the lane state (``s_ro``, ``s_rd``, ``s_cap``, ``pend``: 10 more
+  components) into the next iteration and resolve ``presorted`` beside its
+  (permuted) main trace, banking ``vis * pend``; a lane
   with a pending query holds work, so the loop and the tail compaction
   keep it, and the band ends with one more iteration.
 """
@@ -146,21 +169,22 @@ PARK_RD = (1.0, 0.0, 0.0)
 # emission takes MIS weight 1.
 BIG = 1e30
 
-# Int state columns: active, j (samples started), slot, depth.
-ACTIVE, J, SLOT, DEPTH = 0, 1, 2, 3
-# Float state columns of the loop's carry: ro, rd, beta (path throughput),
+# Int state rows: active, j (samples started), depth, slot. A step writes
+# the first three back; the slot row moves only with a gather.
+ACTIVE, J, DEPTH, SLOT = 0, 1, 2, 3
+# Float state rows of the loop's carry: ro, rd, beta (path throughput),
 # emis (weight of the next hit's emission), acc (the lane's banked
 # radiance); under MIS pdf_prev (the density of the bounce that reached the
 # next hit); under RT_DEFER_SHADOW the pending query (s_ro, s_rd, s_cap)
-# and its direct term pend. Under RT_STATE_BF16 the gathered rows hold
-# beta and emis as one column of bf16 pairs (pack2).
+# and its direct term pend. Under RT_STATE_BF16 the gathered state holds
+# beta and emis as three rows of bf16 pairs (pack2).
 ACC = slice(12, 15)
 
 
 class Hooks(NamedTuple):
     """The regen engine's measurement hooks (see the module docstring)."""
 
-    permute: bool  # RT_PERMUTE_STATE
+    permute: bool  # RT_PERMUTE_STATE (the lane permutation)
     ablate: str  # RT_ABLATE: "", "shadow" or "rng"
     state_bf16: bool  # RT_STATE_BF16
     reverse: bool  # RT_SHADOW_REVERSE
@@ -169,7 +193,7 @@ class Hooks(NamedTuple):
 
 def read_hooks() -> Hooks:
     return Hooks(
-        permute=env.flag("RT_PERMUTE_STATE", True),
+        permute=env.flag("RT_PERMUTE_STATE", False),
         ablate=env.choice("RT_ABLATE", "", ("", "shadow", "rng")),
         state_bf16=env.flag("RT_STATE_BF16", False),
         reverse=env.flag("RT_SHADOW_REVERSE", False),
@@ -284,24 +308,22 @@ class BandGraphs:
 
     def stage(self, fs: torch.Tensor, ints: torch.Tensor) -> _Stage:
         """The stage of ``fs``'s width, its buffers holding ``fs`` and ``ints``."""
-        st = self.stages.get(fs.shape[0])
+        st = self.stages.get(fs.shape[1])
         if st is None:
-            st = self.stages[fs.shape[0]] = _Stage(torch.empty_like(fs), torch.empty_like(ints))
+            st = self.stages[fs.shape[1]] = _Stage(torch.empty_like(fs), torch.empty_like(ints))
         st.fs.copy_(fs)
         st.ints.copy_(ints)
         return st
 
     def step(self, st: _Stage, step, it: int) -> None:
         """Iteration ``it`` at ``st``'s width: eagerly the first time, then
-        captured, then replayed; the new state lands in ``st``'s buffers."""
+        captured, then replayed; the step writes the new state into
+        ``st``'s buffers and adds its rays to ``rays``."""
         if st.graph is None and st.warm:
             self._capture(st, step)
         if st.graph is None:
             self.it.fill_(it)
-            fs, ints, rays = step(self.it, st.fs, st.ints, self.rays)
-            st.fs.copy_(fs)
-            st.ints.copy_(ints)
-            self.rays.copy_(rays)
+            step(self.it, st.fs, st.ints, self.rays)
             st.warm = True
             return
         with span("rt.regen.replay"):
@@ -319,15 +341,11 @@ class BandGraphs:
             before = _launches()
             stream = torch.cuda.Stream(self.device)
             with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
-                fs, ints, rays = step(self.it, st.fs, st.ints, self.rays)
-                st.fs.copy_(fs)
-                st.ints.copy_(ints)
-                self.rays.copy_(rays)
+                step(self.it, st.fs, st.ints, self.rays)
             # The wrappers counted the captured launches, which the replay
             # that follows makes; every replay adds them again.
             st.launches = [b - a for a, b in zip(before, _launches())]
             _add_launches([-k for k in st.launches])
-        del fs, ints, rays
         st.graph = graph
         count("regen.graph_captures")
 
@@ -423,13 +441,15 @@ def render_band_regen(
     rows: int,
     num_samples: int,
     seed: int,
-    permute: bool = True,
+    permute: bool | None = None,
     graphs: StepGraphs | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render a row band -> (sums f32[rows, W, 4, 3], rays traced i64 scalar),
-    on the scene's device. ``permute=False`` keeps the lanes in slot order
-    (the traces then sort and unsort around the traversal themselves), as
-    ``RT_PERMUTE_STATE=0`` does. With ``graphs``, where ``step_graphable``,
+    on the scene's device. ``permute`` (BVH scenes) overrides
+    ``RT_PERMUTE_STATE``: True permutes the lane state by the coherence key
+    each step, False keeps the lanes in slot order (the traces then sort and
+    unsort around the traversal themselves; ``RT_DEFER_SHADOW`` cannot
+    defer), None follows the hook. With ``graphs``, where ``step_graphable``,
     the steps replay CUDA graphs kept there (the same kernels in the same
     order: the same sums); without, every step is eager. Reads the hooks of
     ``read_hooks`` once."""
@@ -455,11 +475,17 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
     f32, i32 = torch.float32, torch.int32
     hard_cap = num_samples * (cfg.max_depth + 2) + 64
     bvh = scene.use_bvh
-    permute = permute and hooks.permute and bvh
     sphere_light = scene.light_type == LIGHT_SPHERE
     cull = bvh and sphere_light
     reverse = hooks.reverse and bvh and sphere_light
-    deferred = hooks.defer and permute and not reverse
+    # Hooks whose JAX meaning rests on the permuted state turn the
+    # permutation on: a reversed or deferred shadow trace runs presorted in
+    # the main trace's order, and the bf16 state rounds at each of the
+    # state's gathers, the permutation's every step.
+    deferred = hooks.defer and bvh and not reverse and permute is not False
+    if permute is None:
+        permute = hooks.permute or hooks.state_bf16 or reverse or deferred
+    permute = permute and bvh
     bf16 = hooks.state_bf16
     ablate = hooks.ablate
     draws = ablate_draws(scene) if ablate == "rng" else None
@@ -489,14 +515,14 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
         bg.seed.fill_(seed_u)
         seed_u = bg.seed
     base = y0 * w * 4
-    c_sh = 16 if mis else 15  # first column of the pending query (deferred)
+    c_sh = 16 if mis else 15  # first row of the pending query (deferred)
 
-    fs = torch.zeros((n, c_sh + (10 if deferred else 0)), dtype=f32, device=dev)
+    fs = torch.zeros((c_sh + (10 if deferred else 0), n), dtype=f32, device=dev)
     if deferred:
-        fs[:, c_sh:c_sh + 3] = PARK_RO
-        fs[:, c_sh + 3:c_sh + 6] = torch.tensor(PARK_RD, dtype=f32, device=dev)
-    ints = torch.zeros((n, 4), dtype=i32, device=dev)
-    ints[:, SLOT] = torch.arange(base, base + n, dtype=i32, device=dev)
+        fs[c_sh:c_sh + 3] = PARK_RO
+        fs[c_sh + 3:c_sh + 6] = torch.tensor(PARK_RD, dtype=f32, device=dev)[:, None]
+    ints = torch.zeros((4, n), dtype=i32, device=dev)
+    ints[SLOT] = torch.arange(base, base + n, dtype=i32, device=dev)
     if bg is None:
         rays = torch.zeros((), dtype=torch.int64, device=dev)
     else:
@@ -513,44 +539,51 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
         else:
             tally = bg.phong.zero_()
 
-    def pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow: bool = False) -> torch.Tensor:
-        """The state as rows: the loop's carry, or (``narrow``) the
-        gathered rows with beta and emis as bf16 pairs."""
-        cols = [vm.stack3(ro), vm.stack3(rd)]
-        cols += [pack2(beta, emis)] if narrow else [beta, emis]
-        cols.append(acc)
+    def rows_of(ro, rd, beta, emis, acc, pdf_prev, sh, narrow: bool = False) -> list[torch.Tensor]:
+        """The state's float components as [k, lanes] blocks in the order of
+        ``fs``'s rows: the loop's carry, or (``narrow``) the gathered state
+        with beta and emis as bf16 pairs."""
+        out = [c[None] for c in (*ro, *rd)]
+        out += [pack2(beta, emis).t()] if narrow else [beta.t(), emis.t()]
+        out.append(acc.t())
         if mis:
-            cols.append(pdf_prev[:, None])
+            out.append(pdf_prev[None])
         if deferred:
             s_ro, s_rd, s_cap, pend = sh
-            cols += [vm.stack3(s_ro), vm.stack3(s_rd), s_cap[:, None], pend]
-        return torch.cat(cols, dim=1)
+            out += [c[None] for c in (*s_ro, *s_rd, s_cap)] + [pend.t()]
+        return out
+
+    def pack(*state, narrow: bool = False) -> torch.Tensor:
+        """The state as a new f32[C, lanes] (``rows_of``)."""
+        return torch.cat(rows_of(*state, narrow=narrow))
 
     def unpack(fs: torch.Tensor, narrow: bool = False):
-        """``pack``'s inverse -> (ro, rd, beta, emis, acc, pdf_prev, sh)."""
+        """``pack``'s inverse -> (ro, rd, beta, emis, acc, pdf_prev, sh): views
+        of ``fs``'s rows, the 3-vectors of colour as [lanes, 3]."""
         if narrow:
-            beta, emis = unpack2(fs[:, 6:9])
+            beta, emis = (v.t() for v in unpack2(fs[6:9]))
             c = 9
         else:
-            beta, emis = fs[:, 6:9], fs[:, 9:12]
+            beta, emis = fs[6:9].t(), fs[9:12].t()
             c = 12
-        acc = fs[:, c:c + 3]
+        acc = fs[c:c + 3].t()
         c += 3
-        pdf_prev = fs[:, c] if mis else None
+        pdf_prev = fs[c] if mis else None
         c += int(mis)
         sh = None
         if deferred:
-            sh = (vm.as3(fs[:, c:c + 3]), vm.as3(fs[:, c + 3:c + 6]), fs[:, c + 6], fs[:, c + 7:c + 10])
-        return vm.as3(fs[:, 0:3]), vm.as3(fs[:, 3:6]), beta, emis, acc, pdf_prev, sh
+            sh = (tuple(fs[c:c + 3]), tuple(fs[c + 3:c + 6]), fs[c + 6], fs[c + 7:c + 10].t())
+        return tuple(fs[0:3]), tuple(fs[3:6]), beta, emis, acc, pdf_prev, sh
 
-    def step(it, fs: torch.Tensor, ints: torch.Tensor, rays: torch.Tensor):
-        """One iteration -> (fs, ints, rays); ``it`` an int or a 0-d i64
+    def step(it, fs: torch.Tensor, ints: torch.Tensor, rays: torch.Tensor) -> None:
+        """One iteration on the state in ``fs`` and ``ints``, written back
+        into them, its rays added to ``rays``; ``it`` an int or a 0-d i64
         tensor on the device."""
         with span("rt.regen.camera"):
-            active = ints[:, ACTIVE] != 0
-            j = ints[:, J]
-            slot = ints[:, SLOT]
-            depth = ints[:, DEPTH]
+            active = ints[ACTIVE] != 0
+            j = ints[J]
+            slot = ints[SLOT]
+            depth = ints[DEPTH]
             ro, rd, beta, emis, acc, pdf_prev, sh = unpack(fs)
             slot64 = slot.to(torch.int64)
 
@@ -585,24 +618,25 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
         if permute:
             # 1c) permute the lane state by the key
             with span("rt.regen.sort"):
-                fs = pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow=bf16)
-                ints = torch.stack([active.to(i32), j, slot, depth], dim=1)
-                g = sort_group(ints.shape[0])
+                p_fs = pack(ro, rd, beta, emis, acc, pdf_prev, sh, narrow=bf16)
+                p_ints = torch.stack([active.to(i32), j, depth, slot])
+                m = p_ints.shape[1]
+                g = sort_group(m)
                 if g > 1:
                     order_g = group_order(scene, ro, rd, eps, g)
-                    fs = fs.view(-1, g * fs.shape[1])[order_g].view(ints.shape[0], -1)
-                    ints = ints.view(-1, g * 4)[order_g].view(-1, 4)
+                    p_fs = p_fs.view(p_fs.shape[0], -1, g)[:, order_g].view(-1, m)
+                    p_ints = p_ints.view(4, -1, g)[:, order_g].view(4, m)
                 else:
                     order = coherence_order(scene, ro, rd, eps)
-                    fs, ints = fs[order], ints[order]
-                active, j, slot, depth = (ints[:, c] for c in range(4))
+                    p_fs, p_ints = p_fs[:, order], p_ints[:, order]
+                active, j, depth, slot = p_ints.unbind(0)
                 active = active != 0
                 slot64 = slot.to(torch.int64)
-                ro, rd, beta, emis, acc, pdf_prev, sh = unpack(fs, narrow=bf16)
+                ro, rd, beta, emis, acc, pdf_prev, sh = unpack(p_fs, narrow=bf16)
 
         # 2) main trace: camera and continuation rays together
         with span("rt.regen.trace"):
-            rays = rays + active.sum()
+            rays += active.sum()
             hit = trace_soa(scene, pre, ro, rd, eps, presorted=permute)
             valid = active & hit.valid
 
@@ -647,7 +681,7 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
             nee = valid & ~is_spec
             # Every NEE lane counts as a ray, culled or not: the reference traces
             # every visibility ray (src/scene.rs:218-229).
-            rays = rays + nee.sum()
+            rays += nee.sum()
             # A sample on the light's far side is self-occluded by the convex
             # light sphere; BVH scenes skip its trace.
             shadow = nee & (cos_y > 0.0) if cull else nee
@@ -707,23 +741,26 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
             else:
                 emis = torch.where(is_spec[:, None], beta / p[:, None], 0.0)
 
-            # 6) continue; ended paths regenerate next iteration
+            # 6) continue; ended paths regenerate next iteration. Every
+            # component written is a new tensor, none a view of the state.
             ro = vm.where3(live, x, ro)
             rd = vm.where3(live, wi, rd)
-            fs = pack(ro, rd, beta_next, emis, acc, pdf_prev, sh)
-            ints = torch.stack([live.to(i32), j, slot, depth], dim=1)
-        return fs, ints, rays
+            torch.cat(rows_of(ro, rd, beta_next, emis, acc, pdf_prev, sh), out=fs)
+            torch.stack([live.to(i32), j, depth], out=ints[:SLOT])
+            if permute:
+                ints[SLOT].copy_(slot)
 
     def work(fs: torch.Tensor, ints: torch.Tensor) -> torch.Tensor:
         """Lanes with a path in flight, samples left or a pending query."""
-        busy = (ints[:, ACTIVE] != 0) | (ints[:, J] < num_samples)
-        return busy | (fs[:, c_sh + 6] > 0.0) if deferred else busy
+        busy = (ints[ACTIVE] != 0) | (ints[J] < num_samples)
+        return busy | (fs[c_sh + 6] > 0.0) if deferred else busy
 
     it = 0
 
-    def run(fs, ints, rays, limit: int):
+    def run(fs, ints, limit: int) -> None:
         """Step until no lane has work, ``hard_cap``, or <= ``limit`` lanes work."""
         nonlocal it
+        width = ints.shape[1]
         while it < hard_cap:
             with span("rt.regen.sync"):
                 working = int(work(fs, ints).sum())
@@ -731,34 +768,36 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
             if working <= limit:
                 break
             count("regen.steps")
-            count("regen.lanes_stepped", ints.shape[0])
+            count("regen.lanes_stepped", width)
             count("regen.lanes_working", working)
+            if permute:
+                count("regen.rows_gathered", width)
             if bg is None:
-                fs, ints, rays = step(it, fs, ints, rays)
+                step(it, fs, ints, rays)
             else:
-                bg.step(bg.stages[fs.shape[0]], step, it)
+                bg.step(bg.stages[width], step, it)
             it += 1
-        return fs, ints, rays
 
     tail_slots, tail_accs = [], []
     for w2 in tail_widths(n, cfg, bvh):
-        fs, ints, rays = run(fs, ints, rays, w2)
-        # Stable: working lanes first in their current (coherent) order;
-        # finished lanes' slots and sums leave with the tail rows.
+        run(fs, ints, w2)
+        # Stable: working lanes first in their current order; finished
+        # lanes' slots and sums leave with the tail.
         with span("rt.regen.compact"):
             order2 = torch.argsort((~work(fs, ints)).to(i32), stable=True)
+            head, tail = order2[:w2], order2[w2:]
+            count("regen.rows_gathered", ints.shape[1])
+            tail_slots.append(ints[SLOT][tail])
+            tail_accs.append(fs[ACC][:, tail])
             if bf16:
-                fs = pack(*unpack(pack(*unpack(fs), narrow=True)[order2], narrow=True))
+                fs = pack(*unpack(pack(*unpack(fs), narrow=True)[:, head], narrow=True))
             else:
-                fs = fs[order2]
-            ints = ints[order2]
-            tail_slots.append(ints[w2:, SLOT])
-            tail_accs.append(fs[w2:, ACC])
-            fs, ints = fs[:w2], ints[:w2]
+                fs = fs[:, head]
+            ints = ints[:, head]
             if bg is not None:
                 st = bg.stage(fs, ints)
                 fs, ints = st.fs, st.ints
-    fs, ints, rays = run(fs, ints, rays, 0)
+    run(fs, ints, 0)
     if tally is not None and recording():
         hits, diffuse, lobe = tally.sum(dim=1).tolist()
         dead = hits - diffuse - lobe
@@ -768,9 +807,9 @@ def _render_band(scene, pre, cfg, y0, rows, num_samples, seed, permute, hooks: H
         count("regen.phong_dead", dead)
 
     with span("rt.regen.scatter"):
-        slot = torch.cat([ints[:, SLOT]] + tail_slots).to(torch.int64) - base
-        acc = torch.cat([fs[:, ACC]] + tail_accs)
-        out = torch.empty_like(acc)
-        out[slot] = acc
+        slot = torch.cat([ints[SLOT]] + tail_slots).to(torch.int64) - base
+        acc = torch.cat([fs[ACC]] + tail_accs, dim=1)
+        out = torch.empty((n, 3), dtype=f32, device=dev)
+        out[slot] = acc.t()
     # Nothing that leaves the band is a graph's buffer.
     return out.view(rows, w, 4, 3), rays if bg is None else rays.clone()

@@ -340,10 +340,13 @@ def _regen_case(name, cuda, monkeypatch):
 
     if name == "unicorn_deferred":
         monkeypatch.setenv("RT_DEFER_SHADOW", "1")
+    if name == "unicorn_permuted":
+        monkeypatch.setenv("RT_PERMUTE_STATE", "1")
     scene_file, cfg = {
         # 12,288 lanes: every tail width (6,144, 3,072, 2,048).
         "unicorn": ("flying_unicorn", RenderConfig(width=64, height=48)),
         "unicorn_deferred": ("flying_unicorn", RenderConfig(width=64, height=48)),
+        "unicorn_permuted": ("flying_unicorn", RenderConfig(width=64, height=48)),
         "crewmate_phong": ("crewmate_phong", RenderConfig(width=64, height=48)),
         "cornell_mis": ("cornell_box", RenderConfig(width=32, height=24, engine="regen", use_mis=True)),
     }[name]
@@ -352,7 +355,7 @@ def _regen_case(name, cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["unicorn", "crewmate_phong", "cornell_mis", "unicorn_deferred"])
+@pytest.mark.parametrize("name", ["unicorn", "crewmate_phong", "cornell_mis", "unicorn_deferred", "unicorn_permuted"])
 def test_graphed_regen_band_equals_the_eager_band(cuda, name, monkeypatch):
     """The same kernels in the same order: every element of the sums and the
     ray count, on the band that captures and on one that replays."""
@@ -365,6 +368,37 @@ def test_graphed_regen_band_equals_the_eager_band(cuda, name, monkeypatch):
         got, got_rays = render_band_regen(scene, pre, cfg, 0, cfg.height, 2, seed, graphs=graphs)
         assert torch.equal(got, want), seed
         assert int(got_rays) == int(want_rays), seed
+    (bg,) = graphs._bands.values()
+    n = cfg.width * cfg.height * 4
+    assert sorted(bg.stages) == sorted([n] + tail_widths(n, cfg, scene.use_bvh))
+    assert all(st.graph is not None for st in bg.stages.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unicorn", "crewmate_phong"])
+def test_graphed_default_band_equals_the_eager_permuted_band(cuda, name, monkeypatch):
+    """The default step (the lanes in slot order, each trace sorting its own
+    rays by K3's key) replayed as graphs against the eager permuted step of
+    ``RT_PERMUTE_STATE=1``: every element of the sums, the ray count, and
+    K2's and K3's launches (two of each a step on both)."""
+    from raytracer_tpu_torch.ops import bvh_traverse, keys
+    from raytracer_tpu_torch.render.wavefront import StepGraphs, render_band_regen, tail_widths
+
+    scene, pre, cfg = _regen_case(name, cuda, monkeypatch)
+    graphs = StepGraphs()
+
+    def band(**kw):
+        k2, k3 = bvh_traverse.LAUNCHES, keys.LAUNCHES
+        sums, rays = render_band_regen(scene, pre, cfg, 0, cfg.height, 2, seed, **kw)
+        return sums, int(rays), (bvh_traverse.LAUNCHES - k2, keys.LAUNCHES - k3)
+
+    for seed in (5, 6, 7):
+        with monkeypatch.context() as m:
+            m.setenv("RT_PERMUTE_STATE", "1")
+            want, want_rays, want_launches = band()
+        got, got_rays, got_launches = band(graphs=graphs)
+        assert torch.equal(got, want), seed
+        assert got_rays == want_rays and got_launches == want_launches and min(got_launches) > 0, seed
     (bg,) = graphs._bands.values()
     n = cfg.width * cfg.height * 4
     assert sorted(bg.stages) == sorted([n] + tail_widths(n, cfg, scene.use_bvh))

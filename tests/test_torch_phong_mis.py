@@ -140,13 +140,23 @@ def _exact_share(a, b):
     return (a == b).reshape(-1, 3).all(dim=1).double().mean().item()
 
 
-def test_phong_mis_regen_is_deterministic_and_order_free(crewmate):
+@pytest.mark.parametrize("how", ["argument", "hook"])
+def test_phong_mis_regen_is_deterministic_and_order_free(crewmate, monkeypatch, how):
     _, scene = crewmate
     cfg = RenderConfig(width=32, height=24, use_mis=True)
     s1, r1 = _band(scene, cfg, 0, 24, 1, 77)
     s2, r2 = _band(scene, cfg, 0, 24, 1, 77)
     assert torch.equal(s1, s2) and int(r1) == int(r2)
     assert s1.shape == (24, 32, 4, 3) and torch.isfinite(s1).all() and s1.mean() > 0.05
+    # The permuted step (asked for by argument or by RT_PERMUTE_STATE=1),
+    # with the tail compaction, against the default's slot order.
+    if how == "hook":
+        with monkeypatch.context() as m:
+            m.setenv("RT_PERMUTE_STATE", "1")
+            on, r_on = _band(scene, cfg, 0, 24, 1, 77)
+    else:
+        on, r_on = _band(scene, cfg, 0, 24, 1, 77, permute=True)
+    assert _exact_share(s1, on) >= EXACT_SHARE and int(r1) == int(r_on)
     # Permutation off (slot order) and tail compaction off: same slot sums.
     off, r_off = _band(scene, dataclasses.replace(cfg, tail_compact=False), 0, 24, 1, 77, permute=False)
     assert _exact_share(s1, off) >= EXACT_SHARE and int(r1) == int(r_off)

@@ -2,11 +2,15 @@
 
 - determinism: the same seed gives the same sums;
 - the lane order does not matter: the draws are keyed on the frame slot,
-  so the per-iteration state permutation and the tail compaction leave
-  every slot's sum unchanged (exactly equal on >= 99.9% of slots: torch's
-  vectorised CPU loops may round the last lanes of a tensor differently
-  from the others, which can flip a branch on a rare slot), and so does
-  cutting the frame into other bands;
+  so the per-iteration state permutation (``RT_PERMUTE_STATE=1`` or
+  ``permute=True``; the default keeps the lanes in slot order) and the tail
+  compaction leave every slot's sum unchanged (exactly equal on >= 99.9% of
+  slots: torch's vectorised CPU loops may round the last lanes of a tensor
+  differently from the others, which can flip a branch on a rare slot), and
+  so does cutting the frame into other bands;
+- the counter ``regen.rows_gathered`` counts the compactions' widths, and
+  under the permutation each step's width too; ``RT_DEFER_SHADOW=1`` turns
+  the permutation on and defers;
 - cornell_box through regen agrees statistically with the megakernel's
   twin at equal spp;
 - flying_unicorn at 32x24, 64 spp, against the independent C++ tracer
@@ -21,13 +25,16 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.models.loader import load_scene
 from raytracer_tpu_torch.ops import bvh_traverse, keys
 from raytracer_tpu_torch.ops.intersect import scene_precompute
+from raytracer_tpu_torch.render import wavefront
 from raytracer_tpu_torch.render.renderer import Renderer
 from raytracer_tpu_torch.render.wavefront import render_band_regen, tail_widths
+from raytracer_tpu_torch.utils.timing import counters, reset_counters
 from tests.torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
@@ -59,14 +66,85 @@ def test_same_seed_same_sums(unicorn):
     assert s1.shape == (12, 16, 4, 3) and torch.isfinite(s1).all() and s1.mean() > 0.05
 
 
-def test_permutation_leaves_slot_sums_unchanged(unicorn):
-    cfg = RenderConfig(width=24, height=16, tail_compact=False)
+@pytest.mark.parametrize("tail_compact", [False, True])
+@pytest.mark.parametrize("how", ["argument", "hook"])
+def test_permutation_leaves_slot_sums_unchanged(unicorn, monkeypatch, how, tail_compact):
+    """The default (the lanes in slot order) against the permuted step, asked
+    for by ``permute=True`` or by ``RT_PERMUTE_STATE=1``."""
+    cfg = RenderConfig(width=24, height=16, tail_compact=tail_compact)
     keys.LAUNCHES = 0
-    on, rays_on = _band(unicorn, cfg, 0, 16, 2, 99)
-    off, rays_off = _band(unicorn, cfg, 0, 16, 2, 99, permute=False)
+    off, rays_off = _band(unicorn, cfg, 0, 16, 2, 99)
+    plain, rays_plain = _band(unicorn, cfg, 0, 16, 2, 99, permute=False)
+    assert torch.equal(plain, off) and int(rays_plain) == int(rays_off)
+    if how == "hook":
+        monkeypatch.setenv("RT_PERMUTE_STATE", "1")
+        on, rays_on = _band(unicorn, cfg, 0, 16, 2, 99)
+    else:
+        on, rays_on = _band(unicorn, cfg, 0, 16, 2, 99, permute=True)
     assert _exact_share(on, off) >= EXACT_SHARE
     assert int(rays_on) == int(rays_off)
     assert keys.LAUNCHES == 0 and bvh_traverse.LAUNCHES == 0  # CPU: twins only
+
+
+def _counted_band(pair, cfg, **kw):
+    """A band of one sample under a profiler -> (sums, the program's counters)."""
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        sums, _ = _band(pair, cfg, 0, cfg.height, 1, 7, **kw)
+    got = counters()
+    reset_counters()
+    return sums, got
+
+
+def _compacted_widths(n, cfg):
+    """The widths the tail compactions compact: the band's, then each stage's but the last."""
+    return sum(([n] + tail_widths(n, cfg, True))[:-1])
+
+
+def test_rows_gathered_counts_the_compactions_and_the_permutation(unicorn, monkeypatch):
+    cfg = RenderConfig(width=32, height=24)
+    n = 32 * 24 * 4
+    _, default = _counted_band(unicorn, cfg)
+    assert default["regen.rows_gathered"] == _compacted_widths(n, cfg) == n + 2048
+    monkeypatch.setenv("RT_PERMUTE_STATE", "1")
+    _, permuted = _counted_band(unicorn, cfg)
+    assert permuted["regen.lanes_stepped"] == default["regen.lanes_stepped"] > 0
+    assert permuted["regen.rows_gathered"] == _compacted_widths(n, cfg) + permuted["regen.lanes_stepped"]
+    # Without the tail compaction nothing is gathered by default.
+    _, none = _counted_band(unicorn, dataclasses.replace(cfg, tail_compact=False), permute=False)
+    assert "regen.rows_gathered" not in none and none["regen.steps"] > 0
+
+
+@pytest.mark.parametrize("permute_env", [None, "0"])
+def test_deferred_shadow_defers_under_the_default(unicorn, monkeypatch, permute_env):
+    """``RT_DEFER_SHADOW=1`` turns the permutation on for its band: every
+    shadow query resolves presorted, one trace a step beside the main trace,
+    and each step gathers the state; ``permute=False`` keeps it from
+    deferring."""
+    cfg = RenderConfig(width=32, height=24)
+    n = 32 * 24 * 4
+    calls = []
+    real = wavefront.trace_t
+
+    def trace_t(*a, **kw):
+        calls.append(kw.get("presorted", False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(wavefront, "trace_t", trace_t)
+    base, _ = _counted_band(unicorn, cfg)
+    assert calls and not any(calls)  # the default's shadow rays sort themselves
+    monkeypatch.setenv("RT_DEFER_SHADOW", "1")
+    if permute_env is not None:
+        monkeypatch.setenv("RT_PERMUTE_STATE", permute_env)
+    calls.clear()
+    sums, got = _counted_band(unicorn, cfg)
+    assert calls and all(calls) and len(calls) == got["regen.steps"]
+    assert got["regen.rows_gathered"] == _compacted_widths(n, cfg) + got["regen.lanes_stepped"]
+    assert _exact_share(sums, base) >= 0.99  # the same terms, banked a step later
+    calls.clear()
+    plain, got = _counted_band(unicorn, cfg, permute=False)
+    assert calls and not any(calls) and got["regen.rows_gathered"] == _compacted_widths(n, cfg)
+    assert torch.equal(plain, base)
 
 
 def test_tail_compaction_leaves_slot_sums_unchanged(unicorn):

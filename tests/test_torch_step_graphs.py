@@ -168,7 +168,7 @@ def _device_only_kernels(monkeypatch):
     monkeypatch.setattr(keys, "coherence_key", key)
 
 
-@pytest.mark.parametrize("case", ["unicorn", "unicorn_deferred", "cornell_mis", "crewmate"])
+@pytest.mark.parametrize("case", ["unicorn", "unicorn_deferred", "cornell_mis", "crewmate", "unicorn_permuted"])
 def test_the_step_reads_nothing_on_the_host(case, unicorn, cornell, crewmate, monkeypatch):
     if case != "cornell_mis":
         (scene, pre), cfg = crewmate if case == "crewmate" else unicorn, RenderConfig(width=32, height=24)
@@ -177,6 +177,8 @@ def test_the_step_reads_nothing_on_the_host(case, unicorn, cornell, crewmate, mo
         (scene, pre), cfg = cornell, RenderConfig(width=16, height=8, engine="regen", use_mis=True)
     if case.endswith("deferred"):
         monkeypatch.setenv("RT_DEFER_SHADOW", "1")
+    if case.endswith("permuted"):
+        monkeypatch.setenv("RT_PERMUTE_STATE", "1")
     mode = HostReads()
     monkeypatch.setattr(wavefront, "span", mode.span)
     with mode:
@@ -193,10 +195,7 @@ class Replayed:
         self.bg, self.st, self.step = bg, st, step
 
     def replay(self):
-        fs, ints, rays = self.step(self.bg.it, self.st.fs, self.st.ints, self.bg.rays)
-        self.st.fs.copy_(fs)
-        self.st.ints.copy_(ints)
-        self.bg.rays.copy_(rays)
+        self.step(self.bg.it, self.st.fs, self.st.ints, self.bg.rays)
 
 
 def _replays_on_the_cpu(monkeypatch):
@@ -208,7 +207,7 @@ def _replays_on_the_cpu(monkeypatch):
     monkeypatch.setattr(wavefront.BandGraphs, "_capture", capture)
 
 
-@pytest.mark.parametrize("case", ["unicorn", "unicorn_deferred", "cornell_mis"])
+@pytest.mark.parametrize("case", ["unicorn", "unicorn_deferred", "cornell_mis", "unicorn_permuted"])
 def test_graph_plumbing_gives_the_eager_band(case, unicorn, cornell, monkeypatch):
     if case.startswith("unicorn"):
         (scene, pre), cfg = unicorn, RenderConfig(width=32, height=24)
@@ -216,6 +215,8 @@ def test_graph_plumbing_gives_the_eager_band(case, unicorn, cornell, monkeypatch
         (scene, pre), cfg = cornell, RenderConfig(width=16, height=8, engine="regen", use_mis=True)
     if case.endswith("deferred"):
         monkeypatch.setenv("RT_DEFER_SHADOW", "1")
+    if case.endswith("permuted"):
+        monkeypatch.setenv("RT_PERMUTE_STATE", "1")
     n = cfg.width * cfg.height * 4
     widths = [n] + tail_widths(n, cfg, scene.use_bvh)
     assert len(widths) == (3 if scene.use_bvh else 1)

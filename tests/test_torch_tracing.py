@@ -134,9 +134,10 @@ def test_counters_hold_under_threads(tmp_path):
 
 
 def test_regen_frame_spans_and_counters(unicorn, tmp_path, monkeypatch):
-    """A BVH frame: every regen and renderer span, tiled inside the caller's;
-    the counters against the loop's own steps, counted by wrapping the
-    camera, which every step calls once over the loop's width."""
+    """A BVH frame: every regen and renderer span (``rt.regen.sort`` only
+    under ``RT_PERMUTE_STATE=1``), tiled inside the caller's; the counters
+    against the loop's own steps, counted by wrapping the camera, which
+    every step calls once over the loop's width."""
     steps = []
     camera = wavefront.camera_rays3
 
@@ -149,7 +150,7 @@ def test_regen_frame_spans_and_counters(unicorn, tmp_path, monkeypatch):
     assert r.engine == "regen"
     _, events, got = traced(lambda: r.render_image(8), tmp_path)
     names = {e["name"] for e in rt_spans(events)}
-    assert names == REGEN_SPANS | RENDER_SPANS
+    assert names == (REGEN_SPANS - {"rt.regen.sort"}) | RENDER_SPANS
     assert_tiled_inside_the_caller(events)
     n_sync = sum(e["name"] == "rt.regen.sync" for e in events)
     n_pull = sum(e["name"] == "rt.render.pull" for e in events)
@@ -162,6 +163,15 @@ def test_regen_frame_spans_and_counters(unicorn, tmp_path, monkeypatch):
     assert n_sync == got["regen.steps"] + 4 and n_pull == 1
     assert sum(e["name"] == "rt.regen.compact" for e in events) == 2
     assert sum(e["name"] == "rt.regen.camera" for e in events) == got["regen.steps"]
+    # Only the two compactions gather the state, each over the band's 2048 lanes.
+    assert got["regen.rows_gathered"] == 2 * 2048
+    # The permuted step: its sort span and its gathers, one a step.
+    monkeypatch.setenv("RT_PERMUTE_STATE", "1")
+    _, events, permuted = traced(lambda: Renderer(unicorn, MESH_CFG, device="cpu").render_image(8), tmp_path)
+    assert {e["name"] for e in rt_spans(events)} == REGEN_SPANS | RENDER_SPANS
+    assert_tiled_inside_the_caller(events)
+    assert sum(e["name"] == "rt.regen.sort" for e in events) == permuted["regen.steps"]
+    assert permuted["regen.rows_gathered"] == 2 * 2048 + permuted["regen.lanes_stepped"]
 
 
 def test_k1_frame_spans(cornell, tmp_path):

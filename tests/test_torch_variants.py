@@ -8,11 +8,13 @@ chair behind the BVH, two planes, a sphere light), 60x45; a band of 12 rows
 (2,880 lanes, tail compaction at 2,048 and 1,024) for the frames that must
 be bit-equal, and whole frames of 8 spp for the statistical ones.
 
-- ``RT_PERMUTE_STATE=0``, ``RT_SORT_GROUP`` (8, and 7, which does not
-  divide the lanes) and ``RT_SHADOW_COMPACT=1`` leave every slot's sums and
-  the ray count bit-equal, under K2's twin and under K4's
-  (``RT_BVH_KERNEL=binary``): draws are keyed on the slot, and a walk's t
-  and index do not depend on the lane order;
+- ``RT_PERMUTE_STATE`` (0, the default, and 1, the permuted step, also
+  with ``RT_SORT_GROUP=8``), ``RT_SORT_GROUP`` (8, and 7, which does not
+  divide the lanes; in the traversal's own sort by default) and
+  ``RT_SHADOW_COMPACT=1`` leave every slot's sums and the ray count
+  bit-equal, under K2's twin and under K4's (``RT_BVH_KERNEL=binary``):
+  draws are keyed on the slot, and a walk's t and index do not depend on
+  the lane order;
 - ``RT_STATE_BF16=1``: ``pack2``/``unpack2`` bit-equal to JAX's own
   ``_pack2``/``_unpack2`` (``wavefront.py:235-245``, run from its code
   object); the frame's mean within 0.5 u8 of the default's and its MAD to
@@ -153,17 +155,19 @@ def defaults(chair):
 @pytest.mark.parametrize("kernel", ["widesmem", "binary"])
 @pytest.mark.parametrize("hook,value", [
     ("RT_PERMUTE_STATE", "0"), ("RT_SORT_GROUP", "8"), ("RT_SORT_GROUP", "7"), ("RT_SHADOW_COMPACT", "1"),
+    ("RT_PERMUTE_STATE", "1"), ("RT_PERMUTE_STATE+RT_SORT_GROUP", "1+8"),
 ])
 def test_frame_is_bit_equal_to_the_default(chair, monkeypatch, kernel, hook, value):
     monkeypatch.setenv("RT_BVH_KERNEL", kernel)
     want, want_rays = _band(chair, monkeypatch)
-    got, rays = _band(chair, monkeypatch, {hook: value})
+    got, rays = _band(chair, monkeypatch, dict(zip(hook.split("+"), value.split("+"))))
     assert torch.equal(got, want) and int(rays) == int(want_rays) and want.abs().sum() > 0
 
 
 def test_sort_group_moves_whole_groups(chair, monkeypatch):
-    """Under RT_SORT_GROUP=8 the permutation orders the groups of 8 lanes
-    of every loop width (the band's and each compaction stage's)."""
+    """Under RT_PERMUTE_STATE=1 and RT_SORT_GROUP=8 the permutation orders
+    the groups of 8 lanes of every loop width (the band's and each
+    compaction stage's)."""
     orders = []
     real = keys.group_order
 
@@ -172,7 +176,7 @@ def test_sort_group_moves_whole_groups(chair, monkeypatch):
         return orders[-1]
 
     monkeypatch.setattr(wavefront, "group_order", spy)
-    _band(chair, monkeypatch, {"RT_SORT_GROUP": "8"})
+    _band(chair, monkeypatch, {"RT_PERMUTE_STATE": "1", "RT_SORT_GROUP": "8"})
     assert orders and all(o.numel() * 8 in (2880, 2048, 1024) for o in orders)
     assert all(torch.equal(torch.sort(o).values, torch.arange(o.numel())) for o in orders)
 
